@@ -1,0 +1,78 @@
+"""Carry projections and whole index states between numpy and the port.
+
+The JAX package draws its SRP projections with ``jax.random``, which
+torch cannot reproduce, so a test that holds the port against a JAX
+index copies ``state.proj`` out of it (as numpy) and hands it over with
+:func:`proj_from_numpy`.  :func:`state_to_numpy` and
+:func:`state_from_numpy` turn a whole ``PFOState`` to and from nested
+dicts of numpy arrays in the JAX package's dtypes (uint32 keys and
+filters), so every field of the two systems can be compared.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .core import snapshots as snap_mod
+from .core.hash_tree import TreeState
+from .core.index import PFOState
+from .core.store import DenseStore
+
+#: fields that hold uint32 values (int64 in the port); the port's tree
+#: arenas are int64 too, where the reference's are int32
+_U32 = {"leaf_key", "keys", "blooms"}
+_PARTS = {"lsh_forest": TreeState, "main_forest": TreeState,
+          "store": DenseStore, "lsh_snaps": snap_mod.SnapshotSet,
+          "main_snaps": snap_mod.SnapshotSet}
+_SCALARS = ("tombstones", "n_tombstones", "stamp")
+
+
+def proj_from_numpy(proj: dict, device=None) -> dict:
+    """``{"table_proj": (d, L*32), "part_proj": (L, 32, C)}`` arrays ->
+    float32 tensors on ``device``."""
+    return {k: torch.as_tensor(np.array(v, np.float32)).to(device)
+            for k, v in proj.items()}
+
+
+def _fields(obj) -> dict:
+    return obj._asdict() if hasattr(obj, "_asdict") else dict(obj)
+
+
+def state_to_numpy(state: PFOState) -> dict:
+    """Nested dict of numpy leaves, in the JAX package's dtypes."""
+    out = {}
+    for part in _PARTS:
+        out[part] = {}
+        for name, t in _fields(getattr(state, part)).items():
+            a = t.detach().cpu().numpy()
+            if name in _U32:
+                a = a.astype(np.uint32)
+            elif a.dtype == np.int64:         # the port's int64 arenas
+                a = a.astype(np.int32)
+            out[part][name] = a
+    for name in _SCALARS:
+        out[name] = getattr(state, name).detach().cpu().numpy()
+    out["proj"] = {k: v.detach().cpu().numpy() for k, v in state.proj.items()}
+    return out
+
+
+def state_from_numpy(tree, device=None) -> PFOState:
+    """Build a port state from :func:`state_to_numpy`'s layout, or from
+    any object with the same fields (a JAX ``PFOState`` whose leaves
+    convert with ``np.asarray``)."""
+    top = _fields(tree)
+    if top.get("cold") is not None:
+        raise NotImplementedError("a cold tier belongs to the cold-tier slice")
+
+    def tensor(name, a, wide=False):
+        a = np.asarray(a)
+        if name in _U32 or (wide and a.dtype.kind == "i"):
+            a = a.astype(np.int64)
+        return torch.as_tensor(a.copy()).to(device)
+
+    parts = {part: cls(**{n: tensor(n, a, wide=cls is TreeState) for n, a in
+                          _fields(top[part]).items()})
+             for part, cls in _PARTS.items()}
+    scalars = {n: tensor(n, top[n]) for n in _SCALARS}
+    return PFOState(**parts, **scalars,
+                    proj=proj_from_numpy(_fields(top["proj"]), device))

@@ -1,0 +1,119 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` exposes a plain C entry point and is compiled
+on first use by ``nvcc`` into its own shared library under
+``build/repro_torch/`` at the root of the checkout::
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -o build/repro_torch/<name>-<hash>.so csrc/<name>.cu
+
+The library's name carries a content hash of its source, so an edited
+kernel is rebuilt and a stale library is never loaded.  Libraries are
+loaded with ``ctypes``; every entry point takes its pointers and the
+CUDA stream as ``c_void_p`` and returns ``cudaGetLastError()``.
+
+Nothing here runs at import time: the CPU tests import every module of
+the package, and the build needs the CUDA toolkit.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+#: the C signature of each kernel's entry point: name -> (symbol, argtypes)
+_P, _I = ctypes.c_void_p, ctypes.c_int
+ENTRY_POINTS = {
+    # x, a, out, n, d, words, stream
+    "lsh_hash": ("lsh_hash_launch", [_P, _P, _P, _I, _I, _I, _P]),
+    # q, store, slots, valid, out, nq, n_rows, c, d, angular, stream
+    "gather_rank": ("gather_rank_launch",
+                    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+}
+
+_FNS: dict = {}                   # name -> loaded entry point
+#: kernel launches since the last reset; each launch adds one, and nothing
+#: else does (chip_smoke.py reads these to prove the path used the kernels)
+LAUNCHES = {name: 0 for name in ENTRY_POINTS}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin/nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
+                       "build the repro_torch kernels")
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(ARCH_FLAGS + NVCC_FLAGS)
+                            .encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def build(names=None) -> dict[str, float]:
+    """Compile every named kernel (default: all) that has no library for
+    its current source, one ``nvcc`` per source, all started together.
+    Returns the wall seconds each build took (0.0 where it was cached).
+    Raises with the compiler's output if any build fails."""
+    names = list(ENTRY_POINTS if names is None else names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs, secs = {}, {}
+    for name in names:
+        out = _lib_path(name)
+        if out.exists():
+            secs[name] = 0.0
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *ARCH_FLAGS, *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT),
+                       tmp, out, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, out, t0) in procs.items():
+        log, _ = proc.communicate()
+        secs[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"{name}: nvcc exit {proc.returncode}\n"
+                          f"{log.decode(errors='replace')}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out)        # atomic: never load a partial .so
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return secs
+
+
+def load(name: str):
+    """The C entry point of kernel ``name``, building it on first use."""
+    fn = _FNS.get(name)
+    if fn is None:
+        path = _lib_path(name)
+        if not path.exists():
+            build([name])
+        symbol, argtypes = ENTRY_POINTS[name]
+        fn = getattr(ctypes.CDLL(str(path)), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _FNS[name] = fn
+    return fn
+
+
+def check(err: int, name: str) -> None:
+    """Raise on a non-zero ``cudaError_t`` returned by a launch."""
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")

@@ -1,0 +1,131 @@
+"""The port's kernels (lsh_hash, gather_rank) against the JAX package.
+
+On the CPU each wrapper takes its plain version, so these tests hold the
+plain versions against the JAX package's kernels (run in interpret mode
+on the CPU, as its own tests run them) on the shape sweeps of
+``tests/test_kernels.py`` plus d = 100.  ``lsh_hash`` must be exact: the
+inputs keep every projection at least 1e-4 from zero (in float64), so a
+different float summation order cannot flip a sign.  ``gather_rank``
+uses the reference's own tolerance, 2e-5.
+
+The CUDA kernels themselves run only on the card: ``test_torch_cuda.py``
+holds them against the plain versions there and skips elsewhere.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from repro.kernels import ops as jops
+from test_torch_cuda import (HASH_SHAPES, RANK_SHAPES, TOL, _t, hash_inputs,
+                             rank_inputs)
+from repro_torch.kernels import _build, ops, ref
+
+torch.set_num_threads(1)
+
+@pytest.mark.parametrize("n,d,tables", HASH_SHAPES)
+def test_lsh_hash_matches_jax(n, d, tables):
+    x, a = hash_inputs(n, d, tables, seed=n * 31 + d)
+    want = np.asarray(jops.lsh_hash(jnp.asarray(x), jnp.asarray(a)))
+    got = ops.lsh_hash(*_t(x, a))
+    assert got.shape == (n, tables) and got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy().astype(np.uint32), want)
+    assert int(got.min()) >= 0 and int(got.max()) <= 0xFFFFFFFF
+
+
+@pytest.mark.parametrize("q,c,n,d", RANK_SHAPES)
+@pytest.mark.parametrize("metric", ["angular", "l2"])
+def test_gather_rank_matches_jax(q, c, n, d, metric):
+    qq, store, slots, valid = rank_inputs(q, c, n, d, seed=q + 7 * c + n)
+    want = np.asarray(jops.gather_rank(jnp.asarray(qq), jnp.asarray(store),
+                                       jnp.asarray(slots), jnp.asarray(valid),
+                                       metric))
+    got = ops.gather_rank(*_t(qq, store, slots, valid), metric).numpy()
+    np.testing.assert_array_equal(np.isinf(got), ~valid)
+    np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+
+
+def test_gather_rank_all_masked_rows_are_inf():
+    qq, store, slots, _ = rank_inputs(4, 6, 11, 9, seed=61)
+    valid = np.zeros((4, 6), bool)
+    valid[1] = True                            # rows 0, 2, 3 all masked
+    d = ops.gather_rank(*_t(qq, store, slots, valid), "angular").numpy()
+    assert np.isinf(d[[0, 2, 3]]).all() and np.isfinite(d[1]).all()
+
+
+@pytest.mark.parametrize("metric", ["angular", "l2"])
+def test_gather_rank_duplicate_and_out_of_range_slots(metric):
+    """Duplicate slots rank equal; slots outside the store clip to its
+    ends, as the JAX kernel clips them."""
+    qq, store, _, _ = rank_inputs(2, 4, 20, 12, seed=71)
+    slots = np.asarray([[3, 3, 3, 7], [-5, 19, 0, 40]], np.int32)
+    valid = np.ones((2, 4), bool)
+    d = ops.gather_rank(*_t(qq, store, slots, valid), metric).numpy()
+    assert d[0, 0] == d[0, 1] == d[0, 2]
+    assert d[1, 0] == d[1, 2] and d[1, 1] == d[1, 3]
+    want = np.asarray(jops.gather_rank(jnp.asarray(qq), jnp.asarray(store),
+                                       jnp.asarray(slots), jnp.asarray(valid),
+                                       metric))
+    np.testing.assert_allclose(d, want, rtol=TOL, atol=TOL)
+
+
+def test_gather_rank_topk_matches_jax():
+    qq, store, slots, valid = rank_inputs(5, 24, 64, 16, seed=81)
+    for metric in ("angular", "l2"):
+        jidx, jd = jops.gather_rank_topk(jnp.asarray(qq), jnp.asarray(store),
+                                         jnp.asarray(slots),
+                                         jnp.asarray(valid), 4, metric)
+        idx, d = ops.gather_rank_topk(*_t(qq, store, slots, valid), 4, metric)
+        np.testing.assert_allclose(d.numpy(), np.asarray(jd), rtol=TOL,
+                                   atol=TOL)
+        np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+
+
+def test_staging_arena_matches_jax_ref():
+    """The plain version keeps the cold tier's staging argument."""
+    qq, store, slots, valid = rank_inputs(3, 10, 8, 6, seed=91)
+    staging = np.random.default_rng(92).normal(size=(5, 6)).astype(np.float32)
+    slots = slots + 3 * (np.arange(10) % 2)    # some slots past the store
+    want = np.asarray(jops.ref.ref_gather_rank(
+        jnp.asarray(qq), jnp.asarray(store), jnp.asarray(slots),
+        jnp.asarray(valid), "l2", staging=jnp.asarray(staging)))
+    got = ops.gather_rank(*_t(qq, store, slots, valid), "l2",
+                          staging=torch.from_numpy(staging)).numpy()
+    np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+
+
+def test_cpu_tensors_take_the_plain_version():
+    ops.reset_launches()
+    x, a = hash_inputs(9, 16, 2, seed=5)
+    assert torch.equal(ops.lsh_hash(*_t(x, a)), ref.ref_lsh_hash(*_t(x, a)))
+    qq, store, slots, valid = rank_inputs(3, 5, 7, 16, seed=6)
+    args = _t(qq, store, slots, valid)
+    assert torch.equal(ops.gather_rank(*args, "l2"),
+                       ref.ref_gather_rank(*args, "l2"))
+    assert ops.LAUNCHES == {"lsh_hash": 0, "gather_rank": 0}
+
+
+def test_non_cpu_tensor_never_takes_the_plain_version():
+    """A tensor that is not on the CPU goes to the kernel or raises; here
+    a meta tensor, which no kernel takes."""
+    x = torch.empty((4, 8), device="meta")
+    a = torch.empty((8, 32), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.lsh_hash(x, a)
+    s = torch.empty((4, 3), dtype=torch.int32, device="meta")
+    v = torch.empty((4, 3), dtype=torch.bool, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.gather_rank(x, a.t(), s, v, "l2")
+
+
+def test_build_names_library_by_source_hash(tmp_path, monkeypatch):
+    p1 = _build._lib_path("lsh_hash")
+    assert p1 == _build._lib_path("lsh_hash")
+    assert p1.parent == _build.BUILD_DIR and p1.name.startswith("lsh_hash-")
+    assert p1 != _build._lib_path("gather_rank")
+    # without nvcc the build raises; it never falls back to anything
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build.shutil, "which", lambda _: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.build(["lsh_hash"])
