@@ -10,15 +10,24 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    kernels' plain versions and on the card through the kernels.  Ids,
    flag words, logs, stats, sync counts and every integer leaf of the
    state must be equal, distances within 1e-5;
-3. the main path at a realistic size: ``PFOIndex.insert / query /
+3. the same for a spilling cold-tier trace (spills, a cold merge, a
+   compaction, deletes of cold-only ids), and on the card the trace
+   through an all-device index whose ring never fills must answer
+   bit-identically;
+4. the hot main path at a realistic size: ``PFOIndex.insert / query /
    delete`` on data shaped like ann-benchmarks' glove-100-angular
    (clustered unit vectors, d = 100, made from ``--seed``), with the
    kernel launch counts set to 0 just before and read just after;
-4. each kernel against its plain version on the card, at the shapes the
-   main path gave it, with its time, the plain version's time, one
-   PyTorch library call's time and the least time the card could take
-   (the bound);
-5. the last line: ``{"ok": true, "device": {...}}``.
+5. the cold path at glove-100 width: 1,000,000 inserts with churn into
+   an index whose store holds a quarter of them, spilling to file-backed
+   segments; queries of cold-only items and deletes of them, counts set
+   to 0 just before and read just after;
+6. each kernel against its plain version on the card, at the shapes its
+   path gave it, with its time, the plain version's time, one PyTorch
+   library call's time and the least time the card could take (the
+   bound);
+7. the card's name and power limit, then the last line:
+   ``{"ok": true, "device": {...}}``.
 
 Everything worth keeping is printed as one JSON object per line.
 """
@@ -28,6 +37,7 @@ import argparse
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -38,9 +48,11 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import convert  # noqa: E402
 from repro_torch.core import PFOConfig, PFOIndex  # noqa: E402
+from repro_torch.core import coldtier  # noqa: E402
 from repro_torch.core import index as index_mod  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
-from repro_torch.kernels.gather_rank import gather_rank_cuda  # noqa: E402
+from repro_torch.kernels.gather_rank import (  # noqa: E402
+    gather_rank_cuda, gather_rank_staged_cuda)
 
 # published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bytes/s and
 # fp32 FLOP/s outside the tensor cores
@@ -50,9 +62,11 @@ MARGIN = 1e-4            # |projection| below this may flip a hash bit
 DIST_TOL = 1e-5          # distances, card vs CPU trace
 RANK_TOL = 2e-5          # gather_rank kernel vs plain (reference tolerance)
 GLOVE_ROWS = 1_183_514   # glove-100-angular's train rows ...
-ITEMS = 1_000_000        # ... cut so that a merge's one 2^20 segment holds all
+ITEMS = 500_000          # ... cut for the hot path, to leave time for the cold
 QUERIES = 1024           # k = 10, half self-queries, half fresh vectors
 DELETES = 4096           # enough to fill the tombstone buffer and merge
+COLD_ITEMS = 1_000_000   # the cold path's inserts, in waves of COLD_WAVE
+COLD_WAVE = 4096
 DEVICE = "cuda"
 
 
@@ -109,10 +123,12 @@ def cuda_ms(fn, iters: int = 20) -> float:
 
 def device_profile(fn) -> dict:
     """Run ``fn`` under ``torch.profiler``: host wall time (the profiler
-    adds to it), the time the card spent in kernels (one stream, so no
-    overlap is double counted),
-    the idle share and the five kernels with the most device time.  The
-    device numbers are None where the profiler saw no device activity."""
+    adds to it), the time the card spent in kernels and copies (one
+    stream, so no overlap is double counted), the idle share and the
+    five kernels with the most device time.  The raw device events are
+    summed directly: the profiler's own event tree takes tens of seconds
+    to build for a call of ~10^5 operators.  The device numbers are None
+    where the profiler saw no device activity."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -121,17 +137,18 @@ def device_profile(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    # kernel events only: an operator's own row repeats its kernels' time
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and e.self_device_time_total > 0]
-    busy = sum(e.self_device_time_total for e in events) / 1e3
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:5]
-    return dict(wall_ms=wall, device_busy_ms=busy if events else None,
-                idle_share=1 - busy / wall if events else None,
-                kernels=[dict(name=e.key[:60], count=e.count,
-                              ms=e.self_device_time_total / 1e3)
-                         for e in top])
+    per = {}                                   # name -> [count, ms]
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            acc = per.setdefault(e.name(), [0, 0.0])
+            acc[0] += 1
+            acc[1] += e.duration_ns() / 1e6
+    busy = sum(ms for _, ms in per.values())
+    top = sorted(per.items(), key=lambda kv: -kv[1][1])[:5]
+    return dict(wall_ms=wall, device_busy_ms=busy if per else None,
+                idle_share=1 - busy / wall if per else None,
+                kernels=[dict(name=name[:60], count=n, ms=ms)
+                         for name, (n, ms) in top])
 
 
 def clone_state(x):
@@ -149,6 +166,15 @@ def clone_state(x):
 def bound_ms(n_bytes: float, flops: float):
     tb, tf = n_bytes / PEAK_BYTES * 1e3, flops / PEAK_FP32 * 1e3
     return max(tb, tf), ("bytes" if tb >= tf else "operations")
+
+
+def cut_criterion(self_ids, got_ids, cids) -> np.ndarray:
+    """Self-queries that miss rank 0 although the ranking budget did not
+    cut their id: the dedupe keeps the max_candidates_total smallest ids,
+    so a cut leaves a full row of kept ids all smaller than the self id."""
+    miss = got_ids[:, 0] != self_ids
+    cut = (cids >= 0).all(1) & (self_ids > cids.max(1))
+    return miss & ~cut
 
 
 # ----------------------------------------------------------------------
@@ -214,34 +240,140 @@ def phase_trace(seed: int):
     t1 = time.perf_counter()
     gpu = run_trace(DEVICE, proj, cfg, vecs)
     t2 = time.perf_counter()
-    check(cpu[1] == gpu[1], f"host state differs: {cpu[1]} vs {gpu[1]}")
+    n_int, max_d = compare_traces(cpu, gpu, "trace")
     check(cpu[1]["maint"].count("seal") >= 2 and "merge" in cpu[1]["maint"],
           "trace must seal twice and merge")
-    max_d = 0.0
-    for (ci, cd), (gi, gd) in zip(cpu[0], gpu[0]):
-        check(np.array_equal(ci, gi), "query ids differ, card vs CPU")
-        fin = np.isfinite(cd)
-        check(np.array_equal(fin, np.isfinite(gd)), "inf pattern differs")
-        if fin.any():
-            max_d = max(max_d, float(np.abs(cd[fin] - gd[fin]).max()))
-    check(max_d <= DIST_TOL, f"distance error {max_d} > {DIST_TOL}")
-    n_int = 0
-    for part in ("lsh_forest", "main_forest", "store", "lsh_snaps",
-                 "main_snaps"):
-        for name, a in cpu[2][part].items():
-            b = gpu[2][part][name]
-            if a.dtype.kind == "f":
-                check(np.allclose(a, b, rtol=0, atol=DIST_TOL),
-                      f"{part}.{name}")
-            else:
-                check(np.array_equal(a, b), f"{part}.{name} differs")
-                n_int += 1
     emit(phase="trace", equal=True, integer_leaves=n_int, max_dist_err=max_d,
          maintenance=cpu[1]["maint"], cpu_s=t1 - t0, gpu_s=t2 - t1)
 
 
+def compare_traces(cpu, gpu, what: str):
+    """Answers, host state and every leaf of two runs of one trace: ids,
+    flags, logs, stats and integer leaves equal, floats within DIST_TOL.
+    Returns (integer leaves compared, max distance error)."""
+    check(cpu[1] == gpu[1], f"{what}: host state differs: {cpu[1]} vs "
+          f"{gpu[1]}")
+    max_d = 0.0
+    for (ci, cd), (gi, gd) in zip(cpu[0], gpu[0]):
+        check(np.array_equal(ci, gi), f"{what}: query ids differ")
+        fin = np.isfinite(cd)
+        check(np.array_equal(fin, np.isfinite(gd)),
+              f"{what}: inf pattern differs")
+        if fin.any():
+            max_d = max(max_d, float(np.abs(cd[fin] - gd[fin]).max()))
+    check(max_d <= DIST_TOL, f"{what}: distance error {max_d} > {DIST_TOL}")
+    n_int = 0
+
+    def leaves(a, b, name):
+        nonlocal n_int
+        if isinstance(a, dict):
+            for k in a:
+                leaves(a[k], b[k], f"{name}.{k}")
+        elif a is None:
+            check(b is None, f"{what}: {name} differs")
+        elif a.dtype.kind == "f":
+            check(np.allclose(a, b, rtol=0, atol=DIST_TOL),
+                  f"{what}: {name} differs")
+        else:
+            check(np.array_equal(a, b), f"{what}: {name} differs")
+            n_int += 1
+
+    for part in ("lsh_forest", "main_forest", "store", "lsh_snaps",
+                 "main_snaps", "tombstones", "n_tombstones", "stamp", "cold"):
+        leaves(cpu[2][part], gpu[2][part], part)
+    return n_int, max_d
+
+
 # ----------------------------------------------------------------------
-# phase 3: the main path at a realistic size
+# phase 3: a spilling cold-tier trace, CPU vs card vs all-device
+# ----------------------------------------------------------------------
+def cold_trace_config(**kw) -> PFOConfig:
+    """The small arenas of the cold tier's own tests (seals every few
+    hundred inserts, a ring of 3); a probe budget every bucket span fits,
+    so a fold (merge, compaction) changes no answer."""
+    base = dict(dim=16, L=3, C=2, m=2, l=16, t=4, max_nodes_per_tree=48,
+                max_leaves_per_tree=64, main_m=3, main_max_nodes_per_tree=128,
+                main_max_leaves_per_tree=512, store_capacity=8192,
+                max_candidates_per_probe=16, max_candidates_total=192,
+                snap_prefix_bits=8, snap_budget_per_probe=64, max_snapshots=3,
+                max_tombstones=128, cold_segments=24, cold_cache_slots=96,
+                cold_fetch_rounds=8)
+    base.update(kw)
+    return PFOConfig(**base)
+
+
+def run_cold_trace(device, proj, cfg, vecs, cold_dir):
+    """Waves of inserts with churn, an explicit background compaction,
+    deletes of cold-only ids, queries between.  Returns (answers, host
+    state, state leaves, compaction-and-delete facts)."""
+    idx = PFOIndex(cfg, device=device, proj=proj, cold_dir=cold_dir)
+    wave = 400
+    ids = np.arange(len(vecs), dtype=np.int32)
+    answers = []
+    for w in range(6):
+        idx.insert(ids[w * wave:(w + 1) * wave], vecs[w * wave:(w + 1) * wave])
+        if w >= 1:                                # churn: the wave before
+            idx.delete(ids[(w - 1) * wave:(w - 1) * wave + wave // 4])
+        if w in (2, 5):
+            answers.append(idx.query(vecs[w * 37:w * 37 + 64], 10))
+    facts = {}
+    if idx.cold is not None:      # the all-device index has no cold tier
+        check(idx.cold.compact_start_async(), f"{device}: no compaction")
+        idx.cold._worker.join()                   # deterministic install
+        idx.state = idx.cold.compact_maybe_install(idx.state)
+        facts["compactions"] = idx.cold.counters["compactions"]
+    answers.append(idx.query(vecs[1000:1064], 10))
+    # ids of wave 0 not deleted yet live only in cold segments, and the
+    # compaction flushed the cache: the delete misses, fetches, retries
+    cold_only = ids[wave // 4:wave // 4 + 100]
+    facts["cold_delete_rounds"] = idx.delete(cold_only)
+    answers.append(idx.query(vecs[wave // 4:wave // 4 + 64], 10))
+    check(not np.isin(answers[-1][0], cold_only).any(),
+          f"{device}: a deleted cold-only id came back")
+    answers.append(idx.query(vecs[2000:2064], 10))
+    host = dict(flags=idx._flags, rounds=idx.rounds_log,
+                maint=idx.maintenance_log, stats=idx.stats(),
+                syncs=idx.sync_count)
+    return answers, host, convert.state_to_numpy(idx.state), facts
+
+
+def phase_cold_trace(seed: int):
+    cfg = cold_trace_config()
+    proj = PFOIndex(cfg, seed=seed, device="cpu").state.proj
+    vecs = safe_vectors(proj, cfg, 2400, seed + 1)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        cpu = run_cold_trace("cpu", proj, cfg, vecs, f"{tmp}/cpu")
+        t1 = time.perf_counter()
+        ops.reset_launches()
+        gpu = run_cold_trace(DEVICE, proj, cfg, vecs, f"{tmp}/gpu")
+        launches = dict(ops.LAUNCHES)
+        t2 = time.perf_counter()
+    n_int, max_d = compare_traces(cpu[:3], gpu[:3], "cold trace")
+    check(cpu[3] == gpu[3], f"cold trace facts differ: {cpu[3]} {gpu[3]}")
+    c = gpu[1]["stats"]["cold"]
+    check(c["segments_spilled"] >= 2 and c["cold_merges"] >= 1
+          and gpu[3]["compactions"] == 1 and gpu[3]["cold_delete_rounds"] >= 2,
+          f"cold trace must spill twice, merge, compact and miss on a "
+          f"cold-only delete: {c} {gpu[3]}")
+    check(launches["gather_rank_staged"] > 0,
+          f"cold trace never ranked from the staging arena: {launches}")
+    # the same trace through an all-device index whose ring never fills
+    hot_cfg = cold_trace_config(max_snapshots=24, max_tombstones=4096,
+                                cold_segments=0)
+    flat = run_cold_trace(DEVICE, proj, hot_cfg, vecs, None)
+    check("merge" not in flat[1]["maint"], "the all-device index merged")
+    for (gi, gd), (fi, fd) in zip(gpu[0], flat[0]):
+        np.testing.assert_array_equal(gi, fi)
+        np.testing.assert_array_equal(gd, fd)
+    emit(phase="cold_trace", equal=True, integer_leaves=n_int,
+         max_dist_err=max_d, all_device_bit_identical=True,
+         maintenance=cpu[1]["maint"], cold=c, facts=gpu[3],
+         launches=launches, cpu_s=t1 - t0, gpu_s=t2 - t1)
+
+
+# ----------------------------------------------------------------------
+# phase 4: the hot main path at a realistic size
 # ----------------------------------------------------------------------
 def exact_topk(store: torch.Tensor, q: torch.Tensor, k: int):
     """Exact angular kNN over the whole store, in row chunks."""
@@ -280,19 +412,20 @@ def phase_main(args):
     index_mod.round_flags = counted_round_flags
     torch.cuda.synchronize()
     ops.reset_launches()                      # counts start here ...
-    t0 = time.perf_counter()
+    t_ins = 0.0
     for b, s in enumerate(range(0, n, batch)):
-        if s + batch >= n:                    # the last batch, traced
+        t0 = time.perf_counter()
+        if s + batch >= n:     # the last batch, traced (its wall time only)
             profile = device_profile(lambda: idx.insert(
                 ids[s:s + batch], vecs[s:s + batch]))
+            t_ins += profile["wall_ms"] / 1e3
         else:
             idx.insert(ids[s:s + batch], vecs[s:s + batch])
+            t_ins += time.perf_counter() - t0
         if b % 64 == 63:
-            emit(phase="insert_progress", items=s + batch,
-                 s=time.perf_counter() - t0,
+            emit(phase="insert_progress", items=s + batch, s=t_ins,
                  maintenance=len(idx.maintenance_log))
     torch.cuda.synchronize()
-    t_ins = time.perf_counter() - t0
 
     # queries: half self-queries of items still in the hot forests (the
     # tier whose candidates reach the ranking whole), half fresh vectors
@@ -342,9 +475,7 @@ def phase_main(args):
                                         cfg).cpu().numpy()
     del queried
     rank0 = got_ids[: nq // 2, 0] == self_ids
-    miss = ~rank0
-    check((cids[miss] >= 0).all() and (self_ids[miss]
-                                       > cids[miss].max(1)).all(),
+    check(not cut_criterion(self_ids, got_ids[: nq // 2], cids).any(),
           "a self-query missed rank 0 without its id being cut by the "
           "ranking budget")
     in_cand = (cids == self_ids[:, None]).any(1)
@@ -370,8 +501,9 @@ def phase_main(args):
     fresh_recall = float(np.mean([len(set(got_ids[i]) & set(truth[i])) / 10
                                   for i in range(nq // 2, nq)]))
     emit(phase="main_path", items=n, dim=cfg.dim,
-         reduced=[f"items {GLOVE_ROWS} -> {n}: a merge keeps one segment "
-                  "of 2^20 entries"],
+         reduced=[f"items {GLOVE_ROWS} -> {n}: leaves the run's time to "
+                  "the cold path (and a merge keeps one segment of 2^20 "
+                  "entries)"],
          insert_batch=batch, insert_s=t_ins, inserts_per_s=n / t_ins,
          insert_rounds=sum(idx.rounds_log), insert_calls=len(idx.rounds_log),
          seals=idx.maintenance_log.count("seal"),
@@ -393,7 +525,205 @@ def phase_main(args):
 
 
 # ----------------------------------------------------------------------
-# phase 4: each kernel against its plain version, timed, with its bound
+# phase 5: the cold path at glove-100 width
+# ----------------------------------------------------------------------
+COLD_TOMBSTONES = 1 << 17
+COLD_BUDGET = 256
+
+
+def cold_config() -> PFOConfig:
+    """main_config()'s widths (d 100, L 10, C 4, m 4, l 128, 512 ranked
+    candidates) with the package's default arenas: LSH segments of
+    256 x 1024 and MainTable segments of 64 x 4096 entries, 262,144 each.
+    The store holds 2^18 vectors and spills below 2^16 free; the cold
+    tier keeps 6 segments a tier and caches L x 6 of them, since at this
+    segment size every Bloom filter matches every query (all 4096
+    12-bit prefixes are occupied)."""
+    return PFOConfig(dim=100, max_snapshots=3, store_capacity=1 << 18,
+                     store_low_watermark=1 << 16,
+                     max_tombstones=COLD_TOMBSTONES, cold_segments=6,
+                     cold_cache_slots=60, cold_fetch_rounds=8,
+                     snap_budget_per_probe=COLD_BUDGET)
+
+
+def state_bytes(x) -> int:
+    """Device bytes held by an index state (NamedTuples, dicts, tensors)."""
+    if isinstance(x, torch.Tensor):
+        return x.numel() * x.element_size()
+    if isinstance(x, dict):
+        return sum(map(state_bytes, x.values()))
+    if hasattr(x, "_fields"):
+        return sum(map(state_bytes, x))
+    return 0
+
+
+def phase_cold_main(args):
+    cfg = cold_config()
+    dev = torch.device(DEVICE)
+    n, wave, nq = COLD_ITEMS, COLD_WAVE, QUERIES
+    data = clustered(n + nq, cfg.dim, args.seed + 7, dev)
+    vecs, fresh = data[:n], data[n:]
+    g = torch.Generator(device=dev).manual_seed(args.seed + 8)
+    ids = torch.randperm(n, generator=g, device=dev).to(torch.int32)
+    alive = torch.ones(n, dtype=torch.bool, device=dev)       # by row
+    tmp = tempfile.TemporaryDirectory()      # file-backed segments (flash)
+    idx = PFOIndex(cfg, seed=args.seed, device=dev, cold_dir=tmp.name)
+    n_waves = (n + wave - 1) // wave
+    torch.cuda.synchronize()
+    ops.reset_launches()                      # counts start here ...
+    t_ins = t_del = 0.0
+    for w in range(n_waves):
+        rows = slice(w * wave, (w + 1) * wave)
+        t0 = time.perf_counter()
+        if w == n_waves - 1:   # the last insert, traced (its wall time only)
+            profile = device_profile(lambda: idx.insert(ids[rows],
+                                                        vecs[rows]))
+            t_ins += profile["wall_ms"] / 1e3
+        else:
+            idx.insert(ids[rows], vecs[rows])
+            t_ins += time.perf_counter() - t0
+        if w >= 2:                 # churn: a third of the wave two back
+            gone = slice((w - 2) * wave, (w - 2) * wave + wave // 3)
+            t0 = time.perf_counter()
+            idx.delete(ids[gone])
+            t_del += time.perf_counter() - t0
+            alive[gone] = False
+        if w % 32 == 31:
+            log = idx.maintenance_log
+            emit(phase="cold_insert_progress", items=(w + 1) * wave,
+                 insert_s=t_ins, churn_delete_s=t_del,
+                 **{m: log.count(m) for m in ("seal", "spill", "merge",
+                                              "cold_compact")},
+                 compactions=idx.cold.counters["compactions"],
+                 cold_segments=idx.cold.n_cold)
+    torch.cuda.synchronize()
+    live_rows = alive.nonzero().squeeze(1)
+    n_live = int(live_rows.numel())
+
+    # self-queries of items that live only in cold segments: live, and
+    # found neither in the hot forest nor in the device ring
+    early = live_rows[live_rows < n // 4]
+    early = early[torch.randperm(early.numel(), generator=g,
+                                 device=dev)[:8 * (nq + DELETES)]]
+    _, hot_or_ring = index_mod._main_lookup(idx.state, ids[early], cfg)
+    cold_rows = early[~hot_or_ring]
+    check(cold_rows.numel() >= nq // 2 + DELETES,
+          f"only {cold_rows.numel()} cold-only items found")
+    self_rows = cold_rows[: nq // 2]
+    del_rows = cold_rows[nq // 2: nq // 2 + DELETES]
+    q = torch.cat([vecs[self_rows], fresh[: nq - nq // 2]])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got_ids, got_d = idx.query(q, 10)
+    t_q = time.perf_counter() - t0
+    queried = clone_state(idx.state)           # the checks read it below
+    q_stats = idx.stats()["cold"]
+    alive_id = torch.zeros(n, dtype=torch.bool, device=dev)
+    alive_id[ids[alive].long()] = True         # live at query time, by id
+    alive_id = alive_id.cpu().numpy()
+
+    t0 = time.perf_counter()
+    del_rounds = idx.delete(ids[del_rows])
+    torch.cuda.synchronize()
+    t_cold_del = time.perf_counter() - t0
+    alive[del_rows] = False
+    after_ids, _ = idx.query(vecs[del_rows[:nq]], 10)
+    launches = dict(ops.LAUNCHES)              # ... and stop here
+    stats = idx.stats()
+
+    # checks of what came out
+    check(got_ids.shape == (nq, 10) and np.isfinite(got_d[got_ids >= 0]).all()
+          and np.array_equal(got_ids >= 0, np.isfinite(got_d)),
+          "query output shape or finiteness")
+    check((np.diff(np.where(np.isfinite(got_d), got_d, 9.0), axis=1)
+           >= 0).all(), "distances not sorted")
+    check(alive_id[got_ids[got_ids >= 0]].all(),
+          "a query returned an id deleted by the churn")
+    dead_np = ids[del_rows].cpu().numpy()
+    check(not np.isin(after_ids, dead_np).any()
+          and alive_id[after_ids[after_ids >= 0]].all(),
+          "a deleted id came back")
+    c = stats["cold"]
+    check(n_live >= 2 * cfg.store_capacity,
+          f"live items {n_live} < 2 x store_capacity")
+    check(c["segments_spilled"] >= 2 and c["compactions"] >= 1
+          and c["cold_merges"] >= 1,
+          f"the cold path must spill twice, compact and merge: {c}")
+    check(c["incomplete_query_rounds"] == 0,
+          f"{c['incomplete_query_rounds']} incomplete query rounds")
+    check(launches["gather_rank_staged"] > 0 and launches["lsh_hash"] > 0,
+          f"a kernel of the cold path was never launched: {launches}")
+    check(stats["overflow_events"] == 0, "arena overflow")
+
+    # self-queries: rank 0, or cut by the ranking budget (read from the
+    # state the query saw, after the launch counts were read)
+    cids, staged_in = _staged_inputs(queried, q, cfg)
+    del queried
+    cids = cids[: nq // 2].cpu().numpy()
+    self_ids = ids[self_rows].cpu().numpy()
+    bad = cut_criterion(self_ids, got_ids[: nq // 2], cids)
+    rank0 = got_ids[: nq // 2, 0] == self_ids
+    in_cand = (cids == self_ids[:, None]).any(1)
+
+    # recall@10 against an exact search of the items live at query time
+    truth_rows, _ = exact_topk(vecs[live_rows], q, 10)
+    truth = ids[live_rows][truth_rows].cpu().numpy()
+    recall = [len(set(got_ids[i]) & set(truth[i])) / 10 for i in range(nq)]
+    staged = q_stats["staged_ranked"]
+    emit(phase="cold_path", items=n, live_items=n_live, dim=cfg.dim,
+         config={k: getattr(cfg, k) for k in (
+             "L", "C", "m", "l", "max_candidates_total", "max_snapshots",
+             "store_capacity", "store_low_watermark", "max_tombstones",
+             "cold_segments", "cold_cache_slots", "cold_fetch_rounds",
+             "snap_budget_per_probe", "snap_prefix_bits")},
+         segment_caps=[index_mod._snap_cfg_lsh(cfg).snapshot_capacity,
+                       index_mod._snap_cfg_main(cfg).snapshot_capacity],
+         device_state_bytes=state_bytes(idx.state),
+         device_cold_bytes=state_bytes(idx.state.cold),
+         device_allocated_bytes=torch.cuda.memory_allocated(),
+         insert_wave=wave, insert_s=t_ins, inserts_per_s=n / t_ins,
+         churn_delete_s=t_del, insert_rounds=sum(idx.rounds_log),
+         maintenance={m: idx.maintenance_log.count(m) for m in (
+             "seal", "spill", "merge", "cold_compact")},
+         queries=nq, query_s=t_q, queries_per_s=nq / t_q,
+         recall_at_10=float(np.mean(recall)),
+         recall_at_10_fresh=float(np.mean(recall[nq // 2:])),
+         self_rank0_rate=float(rank0.mean()),
+         self_in_candidates_rate=float(in_cand.mean()),
+         self_missed_not_cut=int(bad.sum()),
+         read_amplification=(q_stats["vec_fetch_bytes"]
+                             / (staged * cfg.dim * 4) if staged else None),
+         fetches_per_query_round=q_stats["fetches_per_query_round"],
+         staging_hit_rate=q_stats["vec_staging_hit_rate"],
+         query_cold_stats=q_stats,
+         cold_deletes=DELETES, cold_delete_rounds=del_rounds,
+         cold_delete_s=t_cold_del, sync_count=idx.sync_count,
+         launches=launches, stats=stats, last_insert_profile=profile)
+    check(not bad.any(), f"{int(bad.sum())} self-queries missed rank 0 "
+          "without their id being cut by the ranking budget")
+    idx.cold._discard_worker()           # no fold may read the files now
+    del idx
+    tmp.cleanup()
+    return staged_in, launches
+
+
+def _staged_inputs(st, q, cfg):
+    """The cold query's candidates and ranking inputs, rebuilt from the
+    state it saw: (cids, (q, store, staging arena, slots, valid))."""
+    h, cand = index_mod._hot_sealed_candidates(st, q, cfg)
+    ccand = coldtier.cold_probe_lsh(st.cold, h,
+                                    index_mod._snap_cfg_lsh(cfg))[0]
+    cids = index_mod._dedupe_candidates(
+        torch.cat([cand, ccand.to(cand.dtype)], 1), st.tombstones, cfg)
+    slot, found = index_mod._main_lookup_cold(st, cids.reshape(-1), cfg)[:2]
+    slot, found = slot.reshape(cids.shape), found.reshape(cids.shape)
+    valid = (cids >= 0) & found & (slot >= 0)
+    return cids, (q, st.store.data, index_mod._staging_arena(st, cfg),
+                  torch.where(valid, slot, 0).to(torch.int32), valid)
+
+
+# ----------------------------------------------------------------------
+# phase 6: each kernel against its plain version, timed, with its bound
 # ----------------------------------------------------------------------
 def phase_kernels(idx, q, launches):
     cfg, st = idx.cfg, idx.state
@@ -468,6 +798,66 @@ def phase_kernels(idx, q, launches):
     return rows
 
 
+def staged_row(staged_in, launches, metric: str) -> dict:
+    """gather_rank_staged at the cold query's shapes, on its own inputs;
+    plus the bit-identity of a store row ranked through the staging
+    arena."""
+    q, store, staging, slots, valid = staged_in
+    got = ops.gather_rank(q, store, slots, valid, metric, staging=staging)
+    plain = ref.ref_gather_rank(q, store, slots, valid, metric,
+                                staging=staging)
+    check(torch.equal(torch.isinf(got), torch.isinf(plain)),
+          "gather_rank_staged: +inf pattern differs")
+    fin = torch.isfinite(plain)
+    err = float((got[fin] - plain[fin]).abs().max()) if fin.any() else 0.0
+    torch.testing.assert_close(got, plain, rtol=RANK_TOL, atol=RANK_TOL)
+    n_store, d = store.shape
+    nq, c = slots.shape
+    is_staged = slots >= n_store
+    n_valid = int(valid.sum())
+    n_staged = int((valid & is_staged).sum())
+    check(n_staged > 0, "the cold query ranked nothing from staging")
+    qn = q / q.norm(dim=1, keepdim=True).clamp_min(1e-9)
+    angular = metric == "angular"
+
+    # bit-identity: every candidate pointed at a store row, then half of
+    # them addressed through a staging arena holding copies of the rows
+    hot = torch.where(is_staged, slots % n_store, slots)
+    perm = torch.randperm(n_store, device=store.device)
+    arena = torch.empty_like(store)
+    arena[perm] = store
+    mixed = torch.where(torch.arange(c, device=store.device) % 2 == 1,
+                        n_store + perm[hot.long()].to(torch.int32), hot)
+    bit_equal = torch.equal(
+        gather_rank_cuda(qn, store, hot, valid, angular),
+        gather_rank_staged_cuda(qn, store, arena, mixed, valid, angular))
+    check(bit_equal, "a row ranked through the staging arena differs from "
+          "the same row ranked from the store")
+    del arena
+
+    n_rows = int(torch.unique(slots[valid]).numel())   # both arenas
+    ms = cuda_ms(lambda: gather_rank_staged_cuda(qn, store, staging, slots,
+                                                 valid, angular))
+    b_ms, b_by = bound_ms(4 * (nq * d + n_rows * d + 2 * nq * c) + nq * c,
+                          4 * n_valid * d)
+    sl = slots.long()
+    block = torch.where(is_staged[..., None],
+                        staging[(sl - n_store).clamp(0, staging.shape[0] - 1)],
+                        store[sl.clamp_max(n_store - 1)])   # (Q, C, d)
+    return dict(
+        name="gather_rank_staged", route="cuda",
+        source="src/repro_torch/kernels/csrc/gather_rank.cu",
+        replaces="src/repro/kernels/gather_rank.py:144",
+        launches=launches["gather_rank_staged"], max_abs_err=err,
+        bit_identical_to_store=bit_equal, shape=[nq, c, d],
+        staging_rows=int(staging.shape[0]), valid_candidates=n_valid,
+        staged_candidates=n_staged, distinct_rows=n_rows,
+        ms=ms, plain_ms=cuda_ms(lambda: ref.ref_gather_rank(
+            q, store, slots, valid, metric, staging=staging)),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_ms(lambda: torch.bmm(block, qn[:, :, None])))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -484,8 +874,14 @@ def main() -> int:
     emit(phase="build", torch=torch.__version__, cuda=torch.version.cuda,
          card=card, nvcc_s=build_s, build_s=time.perf_counter() - t0)
     phase_trace(args.seed)
+    phase_cold_trace(args.seed)
     idx, q, launches = phase_main(args)
-    emit(kernels=phase_kernels(idx, q, launches))
+    rows = phase_kernels(idx, q, launches)
+    del idx, q
+    torch.cuda.empty_cache()
+    staged_in, cold_launches = phase_cold_main(args)
+    rows.append(staged_row(staged_in, cold_launches, cold_config().metric))
+    emit(kernels=rows)
     print(card, flush=True)
     emit(ok=True, device={"platform": "gpu",
                           "kind": torch.cuda.get_device_name(0),

@@ -6,7 +6,8 @@ index copies ``state.proj`` out of it (as numpy) and hands it over with
 :func:`proj_from_numpy`.  :func:`state_to_numpy` and
 :func:`state_from_numpy` turn a whole ``PFOState`` to and from nested
 dicts of numpy arrays in the JAX package's dtypes (uint32 keys and
-filters), so every field of the two systems can be compared.
+filters, f32 payload pages), so every field of the two systems can be
+compared — the cold tier's ``ColdState`` included (``None`` when off).
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import numpy as np
 import torch
 
 from .core import snapshots as snap_mod
+from .core.coldtier import ColdCache, ColdRouting, ColdState
 from .core.hash_tree import TreeState
 from .core.index import PFOState
 from .core.store import DenseStore
@@ -25,6 +27,8 @@ _PARTS = {"lsh_forest": TreeState, "main_forest": TreeState,
           "store": DenseStore, "lsh_snaps": snap_mod.SnapshotSet,
           "main_snaps": snap_mod.SnapshotSet}
 _SCALARS = ("tombstones", "n_tombstones", "stamp")
+_COLD = {"lsh_route": ColdRouting, "main_route": ColdRouting,
+         "lsh_cache": ColdCache, "main_cache": ColdCache}
 
 
 def proj_from_numpy(proj: dict, device=None) -> dict:
@@ -38,21 +42,30 @@ def _fields(obj) -> dict:
     return obj._asdict() if hasattr(obj, "_asdict") else dict(obj)
 
 
+def _leaf_to_numpy(name: str, t):
+    if t is None:
+        return None
+    a = t.detach().cpu().numpy()
+    if name in _U32:
+        return a.astype(np.uint32)
+    if a.dtype == np.int64:                   # the port's int64 arenas
+        return a.astype(np.int32)
+    return a
+
+
 def state_to_numpy(state: PFOState) -> dict:
     """Nested dict of numpy leaves, in the JAX package's dtypes."""
-    out = {}
-    for part in _PARTS:
-        out[part] = {}
-        for name, t in _fields(getattr(state, part)).items():
-            a = t.detach().cpu().numpy()
-            if name in _U32:
-                a = a.astype(np.uint32)
-            elif a.dtype == np.int64:         # the port's int64 arenas
-                a = a.astype(np.int32)
-            out[part][name] = a
+    out = {part: {n: _leaf_to_numpy(n, t) for n, t in
+                  _fields(getattr(state, part)).items()} for part in _PARTS}
     for name in _SCALARS:
         out[name] = getattr(state, name).detach().cpu().numpy()
     out["proj"] = {k: v.detach().cpu().numpy() for k, v in state.proj.items()}
+    out["cold"] = None
+    if state.cold is not None:
+        out["cold"] = {part: {n: _leaf_to_numpy(n, t) for n, t in
+                              _fields(getattr(state.cold, part)).items()}
+                       for part in _COLD}
+        out["cold"]["n_cold"] = state.cold.n_cold.detach().cpu().numpy()
     return out
 
 
@@ -61,18 +74,26 @@ def state_from_numpy(tree, device=None) -> PFOState:
     any object with the same fields (a JAX ``PFOState`` whose leaves
     convert with ``np.asarray``)."""
     top = _fields(tree)
-    if top.get("cold") is not None:
-        raise NotImplementedError("a cold tier belongs to the cold-tier slice")
 
     def tensor(name, a, wide=False):
+        if a is None:
+            return None
         a = np.asarray(a)
         if name in _U32 or (wide and a.dtype.kind == "i"):
             a = a.astype(np.int64)
         return torch.as_tensor(a.copy()).to(device)
 
-    parts = {part: cls(**{n: tensor(n, a, wide=cls is TreeState) for n, a in
-                          _fields(top[part]).items()})
-             for part, cls in _PARTS.items()}
-    scalars = {n: tensor(n, top[n]) for n in _SCALARS}
-    return PFOState(**parts, **scalars,
-                    proj=proj_from_numpy(_fields(top["proj"]), device))
+    def group(src, kinds, wide=False):
+        return {part: cls(**{n: tensor(n, a, wide=wide and cls is TreeState)
+                             for n, a in _fields(src[part]).items()})
+                for part, cls in kinds.items()}
+
+    cold = top.get("cold")
+    if cold is not None:
+        cold = _fields(cold)
+        cold = ColdState(**group(cold, _COLD),
+                         n_cold=tensor("n_cold", cold["n_cold"]))
+    return PFOState(**group(top, _PARTS, wide=True),
+                    **{n: tensor(n, top[n]) for n in _SCALARS},
+                    proj=proj_from_numpy(_fields(top["proj"]), device),
+                    cold=cold)

@@ -1,4 +1,4 @@
-"""PFOIndex — the public API of the port, without the cold tier.
+"""PFOIndex — the public API of the port.
 
 Layout (paper §3, Fig. 1): one MainTable (id -> vector, murmur-hashed)
 plus ``L`` LSHTables (compound key -> id).  Every table is a Partitioned
@@ -17,9 +17,14 @@ headroom falls below that bound, so arenas never overflow.
 All L LSH tables are stacked into one forest with global tree ids
 ``table * 2^(C+m) + region``, so one dispatch covers every table.
 
+With ``cold_segments > 0`` a full ring spills its oldest segment to a
+host/flash segment store instead of merging (``coldtier.py``); queries
+and deletes then also route through the cold tier's Bloom filters and
+device segment cache, and rank spilled candidates out of its staging
+arena.
+
 This mirrors the JAX package's ``core/index.py`` step for step; the
-steps update the state's tensors in place and return the state.  The
-cold tier (``cold_segments > 0``) belongs to a later slice of the port.
+steps update the state's tensors in place and return the state.
 """
 from __future__ import annotations
 
@@ -31,9 +36,11 @@ import torch
 
 from ..kernels import ops as kops
 from ..obs import Obs
+from . import coldtier
 from . import snapshots as snap_mod
 from .config import PFOConfig
-from .dispatch import (FLAG_ANY_PENDING, FLAG_NEED_SEAL, FLAG_SNAPS_FULL,
+from .dispatch import (FLAG_ANY_PENDING, FLAG_COLD_FULL, FLAG_COLD_MISS,
+                       FLAG_COLD_SPILL, FLAG_NEED_SEAL, FLAG_SNAPS_FULL,
                        FLAG_STORE_FULL, FLAG_TOMBS_FULL, dispatch_to_trees,
                        gather_mailbox, mailbox_ids, pack_round_flags)
 from .hash_tree import (TreeConfig, TreeState, forest_delete_dispatched,
@@ -43,7 +50,8 @@ from .hash_tree import (TreeConfig, TreeState, forest_delete_dispatched,
 from .lsh import main_table_keys, make_projections, region_ids
 from .membership import member_sorted
 from .scatter import masked_put_
-from .store import DenseStore, dense_alloc, dense_free, dense_init, dense_read
+from .store import (DenseStore, dense_alloc, dense_free, dense_init,
+                    dense_read_tiered)
 
 INT_MAX = 2**31 - 1
 
@@ -77,7 +85,9 @@ class PFOState(NamedTuple):
     n_tombstones: torch.Tensor         # i32 ()
     stamp: torch.Tensor                # i32 () seal epoch counter
     proj: dict                         # LSH projection params
-    cold: None = None                  # the cold tier is not ported yet
+    # cold-tier routing table + device segment cache; None when the
+    # cold tier is off
+    cold: coldtier.ColdState | None = None
 
 
 def _snap_cfg_lsh(cfg: PFOConfig) -> PFOConfig:
@@ -92,17 +102,8 @@ def _snap_cfg_main(cfg: PFOConfig) -> PFOConfig:
                         "snap_probes": 1})
 
 
-def check_supported(cfg: PFOConfig) -> None:
-    if cfg.cold_enabled:
-        raise NotImplementedError(
-            "cold_segments > 0 needs the cold tier, which belongs to the "
-            "port's cold-tier slice (core/coldtier.py + the staged "
-            "gather_rank kernel); this slice runs hot + sealed ring only")
-
-
 def init_state(cfg: PFOConfig, proj: dict) -> PFOState:
     """Fresh state on the device of ``proj`` (the SRP parameters)."""
-    check_supported(cfg)
     dev = proj["table_proj"].device
     i32 = dict(dtype=torch.int32, device=dev)
     return PFOState(
@@ -116,6 +117,8 @@ def init_state(cfg: PFOConfig, proj: dict) -> PFOState:
         n_tombstones=torch.tensor(0, **i32),
         stamp=torch.tensor(0, **i32),
         proj=proj,
+        cold=coldtier.init_cold(cfg, _snap_cfg_lsh(cfg), _snap_cfg_main(cfg),
+                                dev),
     )
 
 
@@ -135,11 +138,22 @@ def _tombs_threshold(cfg: PFOConfig) -> int:
     return cfg.max_tombstones - max(1, min(64, cfg.max_tombstones // 4))
 
 
+def _cold_full_threshold(cfg: PFOConfig) -> int:
+    """Routing-table watermark that kicks the background compaction —
+    enough headroom left for the spills that land while it runs."""
+    return cfg.cold_segments - max(1, cfg.cold_segments // 4)
+
+
 def _round_flags(state: PFOState, cfg: PFOConfig, main_capacity: int,
-                 lsh_capacity: int, any_pending: torch.Tensor) -> torch.Tensor:
+                 lsh_capacity: int, any_pending: torch.Tensor,
+                 cold_miss: torch.Tensor | None = None) -> torch.Tensor:
     """Device-side maintenance decision for the *next* round, packed:
     worst-tree cursors against the arena sizes decide seal, ring and
-    tombstone occupancy decide merge."""
+    tombstone occupancy decide merge.  With a cold tier, a full ring
+    spills (COLD_SPILL) instead of merging, store pressure under
+    ``store_low_watermark`` spills too (sealing first when the ring is
+    empty), and routing-table occupancy arms the background compaction
+    (COLD_FULL)."""
     leaf_head, node_head = forest_headroom(state.lsh_forest)
     mleaf, mnode = forest_headroom(state.main_forest)
     need_seal = (
@@ -150,6 +164,23 @@ def _round_flags(state: PFOState, cfg: PFOConfig, main_capacity: int,
         | (leaf_head >= int(cfg.seal_threshold * cfg.max_leaves_per_tree)))
     ring_full = state.lsh_snaps.n_snaps.max() >= cfg.max_snapshots - 1
     tombs_full = state.n_tombstones >= _tombs_threshold(cfg)
+    if cfg.cold_enabled:
+        # capacity relief is a spill, never a merge: SNAPS_FULL stays 0
+        cold_spill = ring_full
+        store_full = None
+        if cfg.store_low_watermark:
+            store_low = state.store.free_top < cfg.store_low_watermark
+            ring_nonempty = state.main_snaps.n_snaps > 0
+            hot_nonempty = state.main_forest.n_items.sum() > 0
+            cold_spill = cold_spill | (store_low & ring_nonempty)
+            need_seal = need_seal | (store_low & ~ring_nonempty
+                                     & hot_nonempty)
+            store_full = store_low
+        return pack_round_flags(
+            any_pending, need_seal, torch.zeros_like(any_pending),
+            tombs_full, cold_spill=cold_spill,
+            cold_full=state.cold.n_cold >= _cold_full_threshold(cfg),
+            cold_miss=cold_miss, store_full=store_full)
     return pack_round_flags(any_pending, need_seal, ring_full, tombs_full)
 
 
@@ -287,13 +318,15 @@ def _dedupe_candidates(cand: torch.Tensor, tombstones: torch.Tensor,
 
 def _rank_candidates(state: PFOState, qvecs: torch.Tensor, cids: torch.Tensor,
                      slot: torch.Tensor, found: torch.Tensor, cfg: PFOConfig,
-                     k: int):
+                     k: int, staging: torch.Tensor | None = None):
     """Exact re-rank: the gather_rank kernel reads candidate vectors
-    straight out of the store by slot id, then a top-k."""
+    straight out of the store by slot id, then a top-k.  ``staging`` is
+    the cold tier's payload arena; slots ``>= store_capacity`` read from
+    it (the staged kernel)."""
     valid = (cids >= 0) & found & (slot >= 0)
     idx, top_d = kops.gather_rank_topk(qvecs, state.store.data,
                                        torch.where(valid, slot, 0), valid,
-                                       k, cfg.metric)
+                                       k, cfg.metric, staging=staging)
     top_ids = cids.gather(1, idx)
     return torch.where(torch.isfinite(top_d), top_ids, -1), top_d
 
@@ -311,14 +344,18 @@ def query_step(state: PFOState, qvecs: torch.Tensor, cfg: PFOConfig, k: int):
 
 def _delete_apply(state: PFOState, ids: torch.Tensor, slot: torch.Tensor,
                   ok: torch.Tensor, cfg: PFOConfig, main_capacity: int,
-                  lsh_capacity: int):
-    """The delete pipeline after the lookup: unlink hot entries, free
-    store slots, append tombstones.  Returns (state, pending), pending
-    covering mailbox and tombstone-buffer overflow rows.  (The cold
-    tier's staging arena joins this signature with the cold-tier slice.)"""
+                  lsh_capacity: int, staging: torch.Tensor | None = None):
+    """The delete pipeline after the lookup, shared by both delete
+    steps: unlink hot entries, free store slots, append tombstones.
+    Returns (state, pending), pending covering mailbox and
+    tombstone-buffer overflow rows.
+
+    ``staging`` enables the tiered path: a row resolved to a staging
+    slot re-derives its LSH keys from the cold payload arena, and frees
+    no store slot (its spill already freed it)."""
     L = cfg.L
     # re-derive LSH keys from the stored vector
-    vecs = dense_read(state.store, torch.where(ok, slot, 0))
+    vecs = dense_read_tiered(state.store, staging, torch.where(ok, slot, 0))
     h, gtrees = compute_keys(state, vecs, cfg)
     flat_tree = torch.where(ok.repeat_interleave(L), gtrees.reshape(-1), -1)
     lbox, l_ovf = dispatch_to_trees(flat_tree, L * cfg.n_trees, lsh_capacity)
@@ -334,7 +371,11 @@ def _delete_apply(state: PFOState, ids: torch.Tensor, slot: torch.Tensor,
     forest_delete_dispatched(state.main_forest, mh_g, mailbox_ids(mbox, ids),
                              main_tree_config(cfg))
 
-    store = dense_free(state.store, slot, ok)
+    if staging is None:
+        store = dense_free(state.store, slot, ok)
+    else:
+        hot_ok = ok & (slot < cfg.store_capacity)
+        store = dense_free(state.store, torch.where(hot_ok, slot, 0), hot_ok)
 
     # tombstones cover sealed copies; rows that do not fit stay pending
     want = ok.to(torch.int32)
@@ -366,8 +407,121 @@ def delete_step(state: PFOState, ids: torch.Tensor, active: torch.Tensor,
 
 
 # ======================================================================
+# cold-tier variants (cfg.cold_enabled): the same pipelines plus the cold
+# Bloom route / cache probe and the wanted/missing fetch protocol
+# ======================================================================
+def _staging_arena(state: PFOState, cfg: PFOConfig) -> torch.Tensor | None:
+    """The cold MainTable cache's payload pages as one
+    (cold_cache_slots * seg_cap, d) arena (a view); staging slot
+    ``store_capacity + e*seg_cap + r`` addresses row r of cache entry e."""
+    vecs = state.cold.main_cache.vecs
+    if vecs is None:
+        return None
+    return vecs.reshape(-1, vecs.shape[-1])
+
+
+def _main_lookup_cold(state: PFOState, ids: torch.Tensor, cfg: PFOConfig,
+                      active: torch.Tensor | None = None):
+    """(N,) id -> (slot, found, unresolved, wanted, missing, probed, fp).
+
+    Hot forest, then the device ring, then the cold cache — newest
+    first (every ring segment is younger than every cold segment).  Rows
+    resolved by a hotter tier are masked out of the cold route, so a
+    stale cold copy of a live id never triggers a fetch.
+    ``unresolved`` marks rows whose Bloom route hit a non-resident cold
+    segment: the caller fetches (``missing``) and retries them."""
+    mh, mtree = main_table_keys(ids, cfg)
+    val, found = forest_lookup_masked(state.main_forest, mtree, mh, ids,
+                                      main_tree_config(cfg))
+    sval, sfound = snap_mod.lookup_exact(snap_mod.one(state.main_snaps), mh,
+                                         ids, _snap_cfg_main(cfg))
+    cold_ids = torch.where(found | sfound, -1, ids)
+    if active is not None:
+        cold_ids = torch.where(active, cold_ids, -1)
+    cval, cfound, row_missing, wanted, missing, probed, fp = \
+        coldtier.cold_lookup_main(state.cold, mh, cold_ids,
+                                  _snap_cfg_main(cfg))
+    # a non-resident matched segment may hold a NEWER copy of the id than
+    # any resident one: never resolve a row through the cold cache while
+    # part of its route is missing; it retries after the fetch
+    cfound = cfound & ~row_missing
+    slot = torch.where(found, val, torch.where(
+        sfound, sval, torch.where(cfound, cval, -1)))
+    found_any = found | sfound | cfound
+    unresolved = ~found_any & row_missing
+    return slot, found_any, unresolved, wanted, missing, probed, fp
+
+
+def query_step_cold(state: PFOState, qvecs: torch.Tensor, cfg: PFOConfig,
+                    k: int):
+    """Batched kNN query over hot + ring + cold tiers.
+
+    :func:`query_step` plus the cold Bloom route: cold candidates come
+    from the matched segments resident in the device cache, and the
+    (wanted, missing) masks of both tiers come back with the results.
+    Candidates that resolve to a *staging* slot rank straight out of
+    the cold payload arena (the ``gather_rank_staged`` kernel).
+    Returns (ids, dists, wanted_l, missing_l, wanted_m, missing_m,
+    info) with info the (10,) cold accounting vector."""
+    q = qvecs.shape[0]
+    h, cand = _hot_sealed_candidates(state, qvecs, cfg)
+    ccand, wanted_l, missing_l, lsh_probed, lsh_fp = \
+        coldtier.cold_probe_lsh(state.cold, h, _snap_cfg_lsh(cfg))
+    cids = _dedupe_candidates(torch.cat([cand, ccand.to(cand.dtype)], 1),
+                              state.tombstones, cfg)
+    slot, found, _, wanted_m, missing_m, m_probed, m_fp = \
+        _main_lookup_cold(state, cids.reshape(-1), cfg)
+    slot, found = slot.reshape(q, -1), found.reshape(q, -1)
+    top_ids, top_d = _rank_candidates(state, qvecs, cids, slot, found, cfg,
+                                      k, staging=_staging_arena(state, cfg))
+    valid = (cids >= 0) & found & (slot >= 0)
+    info = coldtier.pack_cold_info(
+        wanted_l, missing_l, lsh_probed, lsh_fp, wanted_m, missing_m,
+        m_probed, m_fp, (valid & (slot >= cfg.store_capacity)).sum(),
+        valid.sum())
+    return top_ids, top_d, wanted_l, missing_l, wanted_m, missing_m, info
+
+
+def delete_step_cold(state: PFOState, ids: torch.Tensor, active: torch.Tensor,
+                     cfg: PFOConfig, main_capacity: int, lsh_capacity: int,
+                     flags_main_capacity: int | None = None,
+                     flags_lsh_capacity: int | None = None):
+    """Cold-tier batched delete: :func:`delete_step` with the MainTable
+    lookup extended through the cold cache.  A row whose id resolves
+    only through a *non-resident* cold segment stays pending, and the
+    flag word carries COLD_MISS: the host fetches the returned missing
+    segments before the retry round.
+    Returns (state, pending, flags, wanted_m, missing_m)."""
+    slot, found, unresolved, wanted_m, missing_m, _, _ = \
+        _main_lookup_cold(state, ids, cfg, active=active)
+    ok = active & found & (slot >= 0)
+    state, pending = _delete_apply(state, ids, slot, ok, cfg, main_capacity,
+                                   lsh_capacity,
+                                   staging=_staging_arena(state, cfg))
+    pending = pending | (active & unresolved)
+    flags = _round_flags(state, cfg, flags_main_capacity or main_capacity,
+                         flags_lsh_capacity or lsh_capacity, pending.any(),
+                         cold_miss=missing_m.any())
+    return state, pending, flags, wanted_m, missing_m
+
+
+# ======================================================================
 # host orchestrator
 # ======================================================================
+def _pickup(tensors) -> list[np.ndarray]:
+    """Bring device tensors to the host in ONE transfer.  Every value the
+    steps return (int32 ids and counts, float32 distances, bools) is
+    exact in float64, so they travel packed in one float64 buffer and
+    come back as float64 arrays of their own shapes."""
+    flat = torch.cat([t.reshape(-1).to(torch.float64) for t in tensors])
+    host = flat.cpu().numpy()
+    out, at = [], 0
+    for t in tensors:
+        out.append(host[at:at + t.numel()].reshape(t.shape))
+        at += t.numel()
+    return out
+
+
 def _default_device(device):
     if device is not None:
         return torch.device(device)
@@ -392,14 +546,16 @@ class PFOIndex:
     ``device`` None means CUDA (and raises without it); ``proj`` None
     draws the SRP projections from a ``torch.Generator`` seeded with
     ``seed``.  A JAX index's projections carry over with
-    :func:`repro_torch.convert.proj_from_numpy`.
+    :func:`repro_torch.convert.proj_from_numpy`.  ``cold_dir`` selects
+    file backing for the cold tier's segments (mmap'd flash files);
+    None keeps them in host RAM.
     """
 
     MAX_ROUNDS = 64
 
     def __init__(self, cfg: PFOConfig, seed: int = 0, device=None,
-                 proj: dict | None = None, obs: Obs | None = None):
-        check_supported(cfg)
+                 proj: dict | None = None, obs: Obs | None = None,
+                 cold_dir: str | None = None):
         self.cfg = cfg
         self.device = _default_device(device)
         if proj is None:
@@ -414,14 +570,27 @@ class PFOIndex:
         self.maintenance_log: list[str] = []    # "seal" / "merge"
         self._flags: int | None = None
         self._flags_caps = (0, 0)    # (main_cap, lsh_cap) of self._flags
+        self.cold: coldtier.ColdManager | None = None
+        self._delete_miss = None     # device masks stashed by delete rounds
+        if cfg.cold_enabled:
+            self.cold = coldtier.ColdManager(
+                cfg, _snap_cfg_lsh(cfg), _snap_cfg_main(cfg),
+                main_tree_config(cfg), self.device, root=cold_dir,
+                on_sync=self._count_sync)
         self.set_obs(obs if obs is not None else Obs())
+
+    def _count_sync(self) -> None:
+        self.sync_count += 1
 
     # -- observability --------------------------------------------------
     def set_obs(self, obs: Obs) -> None:
         """Bind an observability handle; the index's counters mirror into
-        gauges lazily at snapshot time."""
+        gauges lazily at snapshot time, and the cold manager inherits the
+        same handle."""
         self.obs = obs
         obs.on_snapshot("index", self._mirror_obs)
+        if self.cold is not None:
+            self.cold.set_obs(obs)
 
     def _mirror_obs(self) -> None:
         o = self.obs
@@ -465,20 +634,60 @@ class PFOIndex:
         return self._read_flags(round_flags(self.state, self.cfg, mcap, lcap),
                                 (mcap, lcap))
 
+    def _spill(self) -> None:
+        """One spill epoch, compacting the cold tier first if it is full."""
+        if self.cold.n_cold >= self.cfg.cold_segments:
+            self.state = self._epoch("cold_compact", self.cold.compact,
+                                     self.state)
+            self.maintenance_log.append("cold_compact")
+        self.state = self._epoch("spill", self.cold.spill, self.state)
+        self.maintenance_log.append("spill")
+
     def _maintain(self, flags: int) -> None:
-        """Run the seal/merge epochs the flag word asks for."""
+        """Run the seal/merge/spill epochs the flag word asks for."""
+        if self.cold is not None:
+            before = self.cold.counters["compactions"]
+            self.state = self.cold.compact_maybe_install(self.state)
+            if self.cold.counters["compactions"] != before:
+                self.maintenance_log.append("cold_compact")
+                self._flags = None
         if flags & FLAG_NEED_SEAL:
-            if flags & FLAG_SNAPS_FULL:
+            if flags & FLAG_COLD_SPILL:
+                # capacity relief with a cold tier: spill, never merge
+                self._spill()
+            elif flags & FLAG_SNAPS_FULL:
                 self.state = self._epoch("merge", merge_step, self.state,
                                          self.cfg)
                 self.maintenance_log.append("merge")
             self.state = self._epoch("seal", seal_step, self.state, self.cfg)
             self.maintenance_log.append("seal")
+        elif (flags & FLAG_STORE_FULL) and (flags & FLAG_COLD_SPILL):
+            # store pressure without arena pressure: spill the oldest ring
+            # segment so its payload rows leave the dense store
+            self._spill()
         if flags & FLAG_TOMBS_FULL:
-            self.state = self._epoch("merge", merge_step, self.state, self.cfg)
+            if self.cold is not None:
+                self._epoch("merge", self._merge_with_cold)
+            else:
+                self.state = self._epoch("merge", merge_step, self.state,
+                                         self.cfg)
             self.maintenance_log.append("merge")
+        if self.cold is not None and flags & FLAG_COLD_FULL:
+            self.cold.compact_start_async()
         if flags & (FLAG_NEED_SEAL | FLAG_TOMBS_FULL | FLAG_STORE_FULL):
             self._flags = None       # state changed; carried word is stale
+
+    def _merge_with_cold(self) -> None:
+        """Cold-enabled merge epoch: the tombstones drain into a host fold
+        over ring + cold segments (dead ids physically dropped from every
+        sealed copy), the ring resets, and the device buffer clears in
+        the same epoch."""
+        self._count_sync()
+        tombs = self.state.tombstones.cpu().numpy()
+        self.state = self.cold.merge_cold(self.state, tombs)
+        self.state = self.state._replace(
+            tombstones=torch.full_like(self.state.tombstones, -1),
+            n_tombstones=torch.zeros_like(self.state.n_tombstones))
 
     # -- public API ----------------------------------------------------
     def _ids(self, ids) -> torch.Tensor:
@@ -522,14 +731,46 @@ class PFOIndex:
         qvecs = self._vecs(qvecs)
         t0 = time.perf_counter()
         with self.obs.span("query", n=int(qvecs.shape[0]), k=k):
-            ids, dists = query_step(self.state, qvecs, self.cfg, k)
-            # one device->host pickup: int32 ids and float32 distances
-            # both survive a round trip through float64 exactly
-            both = torch.cat([ids.to(torch.float64), dists.to(torch.float64)],
-                             1).cpu().numpy()
+            if self.cold is None:
+                ids, dists = _pickup(query_step(self.state, qvecs, self.cfg,
+                                                k))
+            else:
+                ids, dists = self._query_cold(qvecs, k)
         self.obs.histogram("index.op_ms", op="query").observe(
             (time.perf_counter() - t0) * 1e3)
-        return both[:, :k].astype(np.int32), both[:, k:].astype(np.float32)
+        return ids.astype(np.int32), dists.astype(np.float32)
+
+    def _query_cold(self, qvecs: torch.Tensor, k: int, overlap=None):
+        """Cold-tier query loop: probe; on a cold-cache miss fetch the
+        Bloom-matched segments and re-probe.  A round that hits no
+        non-resident cold segment does exactly ONE device->host pickup:
+        results, masks and accounting travel together.  ``overlap`` (a
+        stream engine's double-buffer hook) fires right after the first
+        dispatch, before its blocking pickup.  Returns host (ids,
+        dists)."""
+        for attempt in range(self.cfg.cold_fetch_rounds + 1):
+            out = query_step_cold(self.state, qvecs, self.cfg, k)
+            if attempt == 0 and overlap is not None:
+                overlap()            # first dispatch is in flight
+            ids, dists, wl, ml, wm, mm, info = _pickup(out)
+            wl, ml, wm, mm = (m.astype(bool) for m in (wl, ml, wm, mm))
+            self.cold.record_query_round(info)
+            if not (ml.any() or mm.any()):
+                break
+            if attempt == self.cfg.cold_fetch_rounds:
+                # fetch budget exhausted with matches still missing: the
+                # results lack those segments' candidates — counted
+                self.cold.counters["incomplete_query_rounds"] += 1
+                break
+            before = self.cold.counters["fetches"]
+            with self.obs.span("cold_fetch", attempt=attempt):
+                self.state = self.cold.fetch(self.state, wl, ml, wm, mm)
+            if self.cold.counters["fetches"] == before:
+                # every cache slot is wanted by this round: the missing set
+                # can never drain (cache undersized for the fan-out)
+                self.cold.counters["incomplete_query_rounds"] += 1
+                break
+        return ids, dists
 
     def delete(self, ids) -> int:
         ids = self._ids(ids)
@@ -542,16 +783,48 @@ class PFOIndex:
             rounds = 0
             for _ in range(self.MAX_ROUNDS):
                 self._maintain(flags)
-                self.state, pending, fw = delete_step(
-                    self.state, ids, active, self.cfg, mcap, lcap)
+                if self.cold is None:
+                    self.state, pending, fw = delete_step(
+                        self.state, ids, active, self.cfg, mcap, lcap)
+                else:
+                    self.state, pending, fw, wm, mm = delete_step_cold(
+                        self.state, ids, active, self.cfg, mcap, lcap)
+                    self._delete_miss = (wm, mm)
                 rounds += 1
                 flags = self._read_flags(fw, (mcap, lcap))
+                self.fetch_delete_miss(flags)
                 if not flags & FLAG_ANY_PENDING:
                     break
                 active = pending
         self.obs.histogram("index.op_ms", op="delete").observe(
             (time.perf_counter() - t0) * 1e3)
         return rounds
+
+    def fetch_delete_miss(self, flags: int) -> None:
+        """COLD_MISS service: a delete round's MainTable probe matched a
+        non-resident cold segment — read the stashed masks (the only
+        extra readback, and only on miss rounds) and fetch before the
+        retry round.  A miss round where the cache can install nothing
+        (every slot is wanted by this very round) could never make
+        progress, so it raises: the cache is undersized for the
+        workload's per-row Bloom fan-out."""
+        if self.cold is None or not flags & FLAG_COLD_MISS \
+                or self._delete_miss is None:
+            return
+        self._count_sync()
+        wm, mm = _pickup(self._delete_miss)
+        wm, mm = wm.astype(bool), mm.astype(bool)
+        self._delete_miss = None
+        zeros = np.zeros((self.cfg.L, self.cfg.cold_segments), bool)
+        before = self.cold.counters["fetches"]
+        with self.obs.span("cold_fetch", path="delete"):
+            self.state = self.cold.fetch(self.state, zeros, zeros, wm, mm)
+        if mm.any() and self.cold.counters["fetches"] == before:
+            raise RuntimeError(
+                f"delete cannot resolve: its Bloom route spans "
+                f"{int(wm.sum())} cold segments but cold_cache_slots="
+                f"{self.cfg.cold_cache_slots} cannot hold them at once; "
+                "raise PFOConfig.cold_cache_slots")
 
     def update(self, ids, vecs) -> None:
         """Online update (paper §5): new version written, old reclaimed."""
@@ -560,7 +833,7 @@ class PFOIndex:
 
     def stats(self) -> dict:
         st = self.state
-        return {
+        out = {
             "items_hot": int(st.main_forest.n_items.sum()),
             "lsh_leaves": int(st.lsh_forest.n_items.sum()),
             "snapshots": int(st.main_snaps.n_snaps),
@@ -569,3 +842,6 @@ class PFOIndex:
             "overflow_events": int(st.lsh_forest.overflow.sum()),
             "stamp": int(st.stamp),
         }
+        if self.cold is not None:
+            out["cold"] = self.cold.stats()
+        return out

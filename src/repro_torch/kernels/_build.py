@@ -1,11 +1,13 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each ``csrc/<name>.cu`` exposes a plain C entry point and is compiled
-on first use by ``nvcc`` into its own shared library under
-``build/repro_torch/`` at the root of the checkout::
+Each ``csrc/<source>.cu`` exposes plain C entry points (one per kernel;
+``gather_rank.cu`` holds two) and is compiled on first use by ``nvcc``
+into its own shared library under ``build/repro_torch/`` at the root of
+the checkout::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/repro_torch/<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -o build/repro_torch/<source>-<hash>.so \
+         csrc/<source>.cu
 
 The library's name carries a content hash of its source, so an edited
 kernel is rebuilt and a stale library is never loaded.  Libraries are
@@ -30,14 +32,19 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
-#: the C signature of each kernel's entry point: name -> (symbol, argtypes)
+#: each kernel's entry point: name -> (source file stem, symbol, argtypes)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 ENTRY_POINTS = {
     # x, a, out, n, d, words, stream
-    "lsh_hash": ("lsh_hash_launch", [_P, _P, _P, _I, _I, _I, _P]),
+    "lsh_hash": ("lsh_hash", "lsh_hash_launch", [_P, _P, _P, _I, _I, _I, _P]),
     # q, store, slots, valid, out, nq, n_rows, c, d, angular, stream
-    "gather_rank": ("gather_rank_launch",
+    "gather_rank": ("gather_rank", "gather_rank_launch",
                     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    # q, store, staging, slots, valid, out, nq, n_rows, n_staging, c, d,
+    # angular, stream
+    "gather_rank_staged": ("gather_rank", "gather_rank_staged_launch",
+                           [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _P]),
 }
 
 _FNS: dict = {}                   # name -> loaded entry point
@@ -57,38 +64,39 @@ def _nvcc() -> str:
                        "build the repro_torch kernels")
 
 
-def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+def _lib_path(source: str) -> Path:
+    src = (CSRC / f"{source}.cu").read_bytes()
     digest = hashlib.sha256(src + " ".join(ARCH_FLAGS + NVCC_FLAGS)
                             .encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    return BUILD_DIR / f"{source}-{digest}.so"
 
 
 def build(names=None) -> dict[str, float]:
-    """Compile every named kernel (default: all) that has no library for
-    its current source, one ``nvcc`` per source, all started together.
-    Returns the wall seconds each build took (0.0 where it was cached).
-    Raises with the compiler's output if any build fails."""
+    """Compile the sources of every named kernel (default: all) that have
+    no library for their current content, one ``nvcc`` per source, all
+    started together.  Returns the wall seconds each source's build took
+    (0.0 where it was cached).  Raises with the compiler's output if any
+    build fails."""
     names = list(ENTRY_POINTS if names is None else names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs, secs = {}, {}
-    for name in names:
-        out = _lib_path(name)
+    for source in dict.fromkeys(ENTRY_POINTS[n][0] for n in names):
+        out = _lib_path(source)
         if out.exists():
-            secs[name] = 0.0
+            secs[source] = 0.0
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *ARCH_FLAGS, *NVCC_FLAGS, "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+               str(CSRC / f"{source}.cu")]
+        procs[source] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT),
                        tmp, out, time.perf_counter())
     failed = []
-    for name, (proc, tmp, out, t0) in procs.items():
+    for source, (proc, tmp, out, t0) in procs.items():
         log, _ = proc.communicate()
-        secs[name] = time.perf_counter() - t0
+        secs[source] = time.perf_counter() - t0
         if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exit {proc.returncode}\n"
+            failed.append(f"{source}: nvcc exit {proc.returncode}\n"
                           f"{log.decode(errors='replace')}")
             tmp.unlink(missing_ok=True)
         else:
@@ -102,10 +110,10 @@ def load(name: str):
     """The C entry point of kernel ``name``, building it on first use."""
     fn = _FNS.get(name)
     if fn is None:
-        path = _lib_path(name)
+        source, symbol, argtypes = ENTRY_POINTS[name]
+        path = _lib_path(source)
         if not path.exists():
             build([name])
-        symbol, argtypes = ENTRY_POINTS[name]
         fn = getattr(ctypes.CDLL(str(path)), symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

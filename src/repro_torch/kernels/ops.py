@@ -12,7 +12,7 @@ import torch
 
 from . import ref
 from ._build import LAUNCHES
-from .gather_rank import gather_rank_cuda
+from .gather_rank import gather_rank_cuda, gather_rank_staged_cuda
 from .lsh_hash import lsh_hash_cuda
 
 __all__ = ["lsh_hash", "gather_rank", "gather_rank_topk", "LAUNCHES",
@@ -44,24 +44,21 @@ def gather_rank(q: torch.Tensor, store: torch.Tensor, slots: torch.Tensor,
 
     (Q, d), (N, d) store, (Q, C) int slot ids, (Q, C) bool -> (Q, C) f32
     distances, +inf where invalid.  Slots are clipped to the store.
-    ``staging`` (M, d) is the cold tier's arena (slots ``>= N`` read row
-    ``slot - N``); its kernel belongs to the cold-tier slice, so on CUDA
-    it raises until then.
+    ``staging`` (M, d) is the cold tier's arena: slots ``>= N`` read row
+    ``clip(slot - N, 0, M - 1)`` (the ``gather_rank_staged`` kernel).
     """
     if q.device.type == "cpu":
         return ref.ref_gather_rank(q, store, slots, valid, metric,
                                    staging=staging)
-    if staging is not None:
-        raise NotImplementedError(
-            "gather_rank with a staging arena needs the staged kernel of "
-            "the cold-tier slice")
     q = q.float()
     if metric == "angular":
         q = q / q.norm(dim=-1, keepdim=True).clamp_min(1e-9)
-    return gather_rank_cuda(q.contiguous(), store.float().contiguous(),
-                            slots.to(torch.int32).contiguous(),
-                            valid.bool().contiguous(),
-                            angular=(metric == "angular"))
+    args = (q.contiguous(), store.float().contiguous())
+    rest = (slots.to(torch.int32).contiguous(), valid.bool().contiguous())
+    if staging is None:
+        return gather_rank_cuda(*args, *rest, angular=(metric == "angular"))
+    return gather_rank_staged_cuda(*args, staging.float().contiguous(), *rest,
+                                   angular=(metric == "angular"))
 
 
 def gather_rank_topk(q: torch.Tensor, store: torch.Tensor,

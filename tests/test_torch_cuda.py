@@ -22,6 +22,9 @@ HASH_SHAPES = [(1, 8, 1), (7, 33, 2), (37, 100, 3), (128, 64, 4),
                (130, 257, 2), (300, 100, 10)]
 RANK_SHAPES = [(1, 1, 1, 8), (3, 7, 13, 5), (8, 128, 100, 64),
                (5, 130, 41, 17), (16, 96, 500, 100)]
+#: (q, c, n store rows, m staging rows, d): ragged d, N and M
+STAGED_SHAPES = [(1, 1, 1, 1, 8), (3, 7, 13, 4, 5), (8, 128, 100, 37, 64),
+                 (5, 130, 41, 300, 17), (16, 96, 500, 1000, 100)]
 
 
 def hash_inputs(n, d, tables, seed):
@@ -45,6 +48,19 @@ def rank_inputs(q, c, n, d, seed):
             rng.random((q, c)) < 0.7)
 
 
+def staged_inputs(q, c, n, m, d, seed):
+    """Queries, a store, a staging arena and slots over both arenas (some
+    past the staging arena's end, which clip), with masked and duplicate
+    slots."""
+    rng = np.random.default_rng(seed)
+    slots = rng.integers(-2, n + m + 3, size=(q, c)).astype(np.int32)
+    slots[:, ::5] = slots[:, :1]                  # duplicates
+    return (rng.normal(size=(q, d)).astype(np.float32),
+            rng.normal(size=(n, d)).astype(np.float32),
+            rng.normal(size=(m, d)).astype(np.float32), slots,
+            rng.random((q, c)) < 0.7)
+
+
 def _t(*arrays):
     """numpy arrays -> CPU tensors."""
     return tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in arrays)
@@ -59,7 +75,14 @@ def test_each_launch_counts_once_on_card():
     ops.lsh_hash(x.cuda(), a.cuda())
     args = _t(*rank_inputs(2, 3, 5, 16, seed=2))
     ops.gather_rank(*(v.cuda() for v in args), "l2")
-    assert ops.LAUNCHES == {"lsh_hash": 1, "gather_rank": 1}
+    assert ops.LAUNCHES == {"lsh_hash": 1, "gather_rank": 1,
+                            "gather_rank_staged": 0}
+    q, store, staging, slots, valid = (v.cuda() for v in _t(
+        *staged_inputs(2, 3, 5, 4, 16, seed=3)))
+    ops.gather_rank(q, store, slots, valid, "angular", staging=staging)
+    ops.gather_rank(q, store, slots, valid, "l2", staging=staging)
+    assert ops.LAUNCHES == {"lsh_hash": 1, "gather_rank": 1,
+                            "gather_rank_staged": 2}
 
 
 @pytest.mark.cuda
@@ -82,3 +105,39 @@ def test_gather_rank_kernel_matches_plain_on_card(q, c, n, d, metric):
     got = ops.gather_rank(*(t.cuda() for t in args), metric).cpu()
     torch.testing.assert_close(got, ref.ref_gather_rank(*args, metric),
                                rtol=TOL, atol=TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,c,n,m,d", STAGED_SHAPES)
+@pytest.mark.parametrize("metric", ["angular", "l2"])
+def test_gather_rank_staged_kernel_matches_plain_on_card(q, c, n, m, d,
+                                                         metric):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    qq, store, staging, slots, valid = _t(*staged_inputs(q, c, n, m, d,
+                                                         seed=q + c + m))
+    got = ops.gather_rank(qq.cuda(), store.cuda(), slots.cuda(),
+                          valid.cuda(), metric, staging=staging.cuda()).cpu()
+    want = ref.ref_gather_rank(qq, store, slots, valid, metric,
+                               staging=staging)
+    assert torch.equal(torch.isinf(got), ~valid)
+    torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["angular", "l2"])
+def test_staged_rows_rank_bit_identically_on_card(metric):
+    """Store rows copied into the staging arena and addressed through
+    staging slots rank bit for bit as they do from the store."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    qq, store, slots, valid = (t.cuda() for t in _t(
+        *rank_inputs(16, 96, 500, 100, seed=5)))
+    staging = torch.zeros((700, 100), device="cuda")
+    perm = torch.randperm(700, device="cuda")[:500]
+    staging[perm] = store                         # row r -> staging perm[r]
+    staged = torch.where(torch.arange(96, device="cuda") % 2 == 0, slots,
+                         500 + perm[slots.long()].to(torch.int32))
+    a = ops.gather_rank(qq, store, slots, valid, metric)
+    b = ops.gather_rank(qq, store, staged, valid, metric, staging=staging)
+    assert torch.equal(a, b)

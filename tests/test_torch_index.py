@@ -185,8 +185,22 @@ def test_ranking_budget_cut_matches_jax():
 
 
 def test_cold_tier_config_raises():
-    with pytest.raises(NotImplementedError, match="cold-tier slice"):
-        PFOIndex(PFOConfig(**_cfg(cold_segments=4).__dict__), device="cpu")
+    """A cold-tier config no longer raises: it builds on the CPU, spills,
+    and answers a query (the cold tier is held against the JAX package
+    in ``test_torch_cold.py``)."""
+    cfg = PFOConfig(**small_pfo_config(
+        max_leaves_per_tree=64, max_snapshots=3, cold_segments=4,
+        cold_cache_slots=12).__dict__)
+    idx = PFOIndex(cfg, device="cpu")
+    rng = np.random.default_rng(8)
+    vecs = rng.normal(size=(1500, cfg.dim)).astype(np.float32)
+    vecs /= np.linalg.norm(vecs, axis=1, keepdims=True)
+    for s in range(0, 1500, 300):
+        idx.insert(np.arange(s, s + 300, dtype=np.int32), vecs[s:s + 300])
+    assert idx.stats()["cold"]["segments_spilled"] >= 1
+    ids, dists = idx.query(vecs[:8], 3)
+    assert (ids[:, 0] == np.arange(8)).all()
+    assert np.abs(dists[:, 0]).max() <= DIST_TOL
 
 
 def test_loop_traversal_raises():

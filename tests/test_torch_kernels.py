@@ -81,17 +81,26 @@ def test_gather_rank_topk_matches_jax():
         np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
 
 
-def test_staging_arena_matches_jax_ref():
-    """The plain version keeps the cold tier's staging argument."""
+@pytest.mark.parametrize("metric", ["angular", "l2"])
+def test_staging_arena_matches_jax_ref(metric):
+    """The plain version keeps the cold tier's staging argument: slots
+    land in both arenas (past the store's end, and past the staging
+    arena's, which clips), held against the JAX package's ref and its
+    staged kernel."""
     qq, store, slots, valid = rank_inputs(3, 10, 8, 6, seed=91)
     staging = np.random.default_rng(92).normal(size=(5, 6)).astype(np.float32)
     slots = slots + 3 * (np.arange(10) % 2)    # some slots past the store
+    slots[:, -1] = 8 + 9                       # past the staging arena
+    assert (slots >= 8).any() and (slots < 8).any()
+    args = (jnp.asarray(qq), jnp.asarray(store), jnp.asarray(slots),
+            jnp.asarray(valid), metric)
     want = np.asarray(jops.ref.ref_gather_rank(
-        jnp.asarray(qq), jnp.asarray(store), jnp.asarray(slots),
-        jnp.asarray(valid), "l2", staging=jnp.asarray(staging)))
-    got = ops.gather_rank(*_t(qq, store, slots, valid), "l2",
+        *args, staging=jnp.asarray(staging)))
+    got = ops.gather_rank(*_t(qq, store, slots, valid), metric,
                           staging=torch.from_numpy(staging)).numpy()
     np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+    kern = np.asarray(jops.gather_rank(*args, staging=jnp.asarray(staging)))
+    np.testing.assert_allclose(got, kern, rtol=TOL, atol=TOL)
 
 
 def test_cpu_tensors_take_the_plain_version():
@@ -102,7 +111,10 @@ def test_cpu_tensors_take_the_plain_version():
     args = _t(qq, store, slots, valid)
     assert torch.equal(ops.gather_rank(*args, "l2"),
                        ref.ref_gather_rank(*args, "l2"))
-    assert ops.LAUNCHES == {"lsh_hash": 0, "gather_rank": 0}
+    assert torch.equal(ops.gather_rank(*args, "l2", staging=args[1]),
+                       ref.ref_gather_rank(*args, "l2", staging=args[1]))
+    assert ops.LAUNCHES == {"lsh_hash": 0, "gather_rank": 0,
+                            "gather_rank_staged": 0}
 
 
 def test_non_cpu_tensor_never_takes_the_plain_version():
