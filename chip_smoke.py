@@ -48,7 +48,6 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import convert  # noqa: E402
 from repro_torch.core import PFOConfig, PFOIndex  # noqa: E402
-from repro_torch.core import coldtier  # noqa: E402
 from repro_torch.core import index as index_mod  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.gather_rank import (  # noqa: E402
@@ -151,16 +150,22 @@ def device_profile(fn) -> dict:
                          for name, (n, ms) in top])
 
 
-def clone_state(x):
-    """A copy of an index state (NamedTuples and dicts of tensors): the
-    index updates its state in place."""
-    if isinstance(x, torch.Tensor):
-        return x.clone()
-    if isinstance(x, dict):
-        return {k: clone_state(v) for k, v in x.items()}
-    if hasattr(x, "_fields"):
-        return type(x)(*map(clone_state, x))
-    return x
+def tap_ranking(fn):
+    """Run ``fn()`` with the query path's ranking inputs captured through
+    ``index.RANK_TAP``.  Returns fn's result, its wall seconds and copies
+    (the index updates its tensors in place) of the inputs of the last
+    ranking it ran, the one that gave the answer: ``cids, qvecs, store,
+    staging, slots, valid``."""
+    seen = []
+    index_mod.RANK_TAP = lambda **kw: seen.append(kw)
+    try:
+        t0 = time.perf_counter()
+        out = fn()
+        secs = time.perf_counter() - t0
+    finally:
+        index_mod.RANK_TAP = None
+    return out, secs, {k: None if v is None else v.clone()
+                       for k, v in seen[-1].items()}
 
 
 def bound_ms(n_bytes: float, flops: float):
@@ -441,11 +446,8 @@ def phase_main(args):
     q = torch.cat([vecs[pick], fresh[:nq - nq // 2]])
     torch.cuda.synchronize()
     before_q = dict(ops.LAUNCHES)
-    t0 = time.perf_counter()
-    got_ids, got_d = idx.query(q, 10)
-    t_q = time.perf_counter() - t0
+    (got_ids, got_d), t_q, ranked = tap_ranking(lambda: idx.query(q, 10))
     q_launch = {k: ops.LAUNCHES[k] - before_q[k] for k in before_q}
-    queried = clone_state(idx.state)           # the checks read it below
 
     dead_rows = torch.randperm(n, generator=g, device=dev)[:DELETES]
     dead = ids[dead_rows]
@@ -467,13 +469,9 @@ def phase_main(args):
     # A self-query returns itself at rank 0 unless its id was cut before
     # ranking: the reference's dedupe keeps the max_candidates_total
     # smallest candidate ids, so the cut can only drop an id larger than
-    # every id kept, from a full row.  Rebuilt from the state the query
-    # read (after the launch counts were read).
+    # every id kept, from a full row.  The query's own candidates.
     self_ids = ids[pick].cpu().numpy()
-    _, cand = index_mod._hot_sealed_candidates(queried, q[: nq // 2], cfg)
-    cids = index_mod._dedupe_candidates(cand, queried.tombstones,
-                                        cfg).cpu().numpy()
-    del queried
+    cids = ranked["cids"][: nq // 2].cpu().numpy()
     rank0 = got_ids[: nq // 2, 0] == self_ids
     check(not cut_criterion(self_ids, got_ids[: nq // 2], cids).any(),
           "a self-query missed rank 0 without its id being cut by the "
@@ -521,7 +519,7 @@ def phase_main(args):
          stats=idx.stats(),
          last_insert_profile=profile,
          maintenance=idx.maintenance_log)
-    return idx, q, launches
+    return idx, ranked, launches
 
 
 # ----------------------------------------------------------------------
@@ -613,10 +611,7 @@ def phase_cold_main(args):
     del_rows = cold_rows[nq // 2: nq // 2 + DELETES]
     q = torch.cat([vecs[self_rows], fresh[: nq - nq // 2]])
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    got_ids, got_d = idx.query(q, 10)
-    t_q = time.perf_counter() - t0
-    queried = clone_state(idx.state)           # the checks read it below
+    (got_ids, got_d), t_q, ranked = tap_ranking(lambda: idx.query(q, 10))
     q_stats = idx.stats()["cold"]
     alive_id = torch.zeros(n, dtype=torch.bool, device=dev)
     alive_id[ids[alive].long()] = True         # live at query time, by id
@@ -655,11 +650,9 @@ def phase_cold_main(args):
           f"a kernel of the cold path was never launched: {launches}")
     check(stats["overflow_events"] == 0, "arena overflow")
 
-    # self-queries: rank 0, or cut by the ranking budget (read from the
-    # state the query saw, after the launch counts were read)
-    cids, staged_in = _staged_inputs(queried, q, cfg)
-    del queried
-    cids = cids[: nq // 2].cpu().numpy()
+    # self-queries: rank 0, or cut by the ranking budget (the query's own
+    # candidates)
+    cids = ranked["cids"][: nq // 2].cpu().numpy()
     self_ids = ids[self_rows].cpu().numpy()
     bad = cut_criterion(self_ids, got_ids[: nq // 2], cids)
     rank0 = got_ids[: nq // 2, 0] == self_ids
@@ -704,33 +697,18 @@ def phase_cold_main(args):
     idx.cold._discard_worker()           # no fold may read the files now
     del idx
     tmp.cleanup()
-    return staged_in, launches
-
-
-def _staged_inputs(st, q, cfg):
-    """The cold query's candidates and ranking inputs, rebuilt from the
-    state it saw: (cids, (q, store, staging arena, slots, valid))."""
-    h, cand = index_mod._hot_sealed_candidates(st, q, cfg)
-    ccand = coldtier.cold_probe_lsh(st.cold, h,
-                                    index_mod._snap_cfg_lsh(cfg))[0]
-    cids = index_mod._dedupe_candidates(
-        torch.cat([cand, ccand.to(cand.dtype)], 1), st.tombstones, cfg)
-    slot, found = index_mod._main_lookup_cold(st, cids.reshape(-1), cfg)[:2]
-    slot, found = slot.reshape(cids.shape), found.reshape(cids.shape)
-    valid = (cids >= 0) & found & (slot >= 0)
-    return cids, (q, st.store.data, index_mod._staging_arena(st, cfg),
-                  torch.where(valid, slot, 0).to(torch.int32), valid)
+    return ranked, launches
 
 
 # ----------------------------------------------------------------------
 # phase 6: each kernel against its plain version, timed, with its bound
 # ----------------------------------------------------------------------
-def phase_kernels(idx, q, launches):
+def phase_kernels(idx, ranked, launches):
     cfg, st = idx.cfg, idx.state
     rows = []
 
     # lsh_hash at the insert batch's shape: (4096, d) x (d, L*32)
-    x = clustered(4096, cfg.dim, 12345, q.device)
+    x = clustered(4096, cfg.dim, 12345, st.store.data.device)
     a = st.proj["table_proj"].contiguous()
     n, d = x.shape
     p = a.shape[1]
@@ -762,14 +740,9 @@ def phase_kernels(idx, q, launches):
         bound_ms=b_ms, bound_by=b_by,
         library_ms=cuda_ms(lambda: torch.matmul(x, a))))
 
-    # gather_rank at the query's shape, on the query's own candidates
-    _, cand = index_mod._hot_sealed_candidates(st, q, cfg)
-    cids = index_mod._dedupe_candidates(cand, st.tombstones, cfg)
-    slot, found = index_mod._main_lookup(st, cids.reshape(-1), cfg)
-    valid = (cids >= 0) & found.reshape(cids.shape) & (slot.reshape(
-        cids.shape) >= 0)
-    slots = torch.where(valid, slot.reshape(cids.shape), 0).to(torch.int32)
-    store = st.store.data
+    # gather_rank on the hot query's own ranking inputs
+    q, store, valid = ranked["qvecs"], ranked["store"], ranked["valid"]
+    slots = ranked["slots"].to(torch.int32)
     got = ops.gather_rank(q, store, slots, valid, cfg.metric)
     plain = ref.ref_gather_rank(q, store, slots, valid, cfg.metric)
     check(torch.equal(torch.isinf(got), torch.isinf(plain)),
@@ -798,11 +771,12 @@ def phase_kernels(idx, q, launches):
     return rows
 
 
-def staged_row(staged_in, launches, metric: str) -> dict:
-    """gather_rank_staged at the cold query's shapes, on its own inputs;
-    plus the bit-identity of a store row ranked through the staging
-    arena."""
-    q, store, staging, slots, valid = staged_in
+def staged_row(ranked, launches, metric: str) -> dict:
+    """gather_rank_staged on the cold query's own ranking inputs; plus
+    the bit-identity of a store row ranked through the staging arena."""
+    q, store, staging, valid = (ranked[k] for k in ("qvecs", "store",
+                                                    "staging", "valid"))
+    slots = ranked["slots"].to(torch.int32)
     got = ops.gather_rank(q, store, slots, valid, metric, staging=staging)
     plain = ref.ref_gather_rank(q, store, slots, valid, metric,
                                 staging=staging)
@@ -875,12 +849,12 @@ def main() -> int:
          card=card, nvcc_s=build_s, build_s=time.perf_counter() - t0)
     phase_trace(args.seed)
     phase_cold_trace(args.seed)
-    idx, q, launches = phase_main(args)
-    rows = phase_kernels(idx, q, launches)
-    del idx, q
+    idx, ranked, launches = phase_main(args)
+    rows = phase_kernels(idx, ranked, launches)
+    del idx, ranked
     torch.cuda.empty_cache()
-    staged_in, cold_launches = phase_cold_main(args)
-    rows.append(staged_row(staged_in, cold_launches, cold_config().metric))
+    ranked, cold_launches = phase_cold_main(args)
+    rows.append(staged_row(ranked, cold_launches, cold_config().metric))
     emit(kernels=rows)
     print(card, flush=True)
     emit(ok=True, device={"platform": "gpu",

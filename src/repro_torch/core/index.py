@@ -55,6 +55,13 @@ from .store import (DenseStore, dense_alloc, dense_free, dense_init,
 
 INT_MAX = 2**31 - 1
 
+#: Debug hook, off (None) by default: a callable that
+#: :func:`_rank_candidates` hands the inputs of every ranking it runs to,
+#: as keywords ``cids, qvecs, store, staging, slots, valid``.  A
+#: measurement reads the query path's own kernel inputs through it
+#: instead of rebuilding them.
+RANK_TAP = None
+
 
 def lsh_tree_config(cfg: PFOConfig) -> TreeConfig:
     return TreeConfig(
@@ -324,8 +331,11 @@ def _rank_candidates(state: PFOState, qvecs: torch.Tensor, cids: torch.Tensor,
     the cold tier's payload arena; slots ``>= store_capacity`` read from
     it (the staged kernel)."""
     valid = (cids >= 0) & found & (slot >= 0)
-    idx, top_d = kops.gather_rank_topk(qvecs, state.store.data,
-                                       torch.where(valid, slot, 0), valid,
+    slots = torch.where(valid, slot, 0)
+    if RANK_TAP is not None:
+        RANK_TAP(cids=cids, qvecs=qvecs, store=state.store.data,
+                 staging=staging, slots=slots, valid=valid)
+    idx, top_d = kops.gather_rank_topk(qvecs, state.store.data, slots, valid,
                                        k, cfg.metric, staging=staging)
     top_ids = cids.gather(1, idx)
     return torch.where(torch.isfinite(top_d), top_ids, -1), top_d

@@ -203,6 +203,40 @@ def test_cold_tier_config_raises():
     assert np.abs(dists[:, 0]).max() <= DIST_TOL
 
 
+def test_rank_tap_sees_the_answering_ranking():
+    """``index.RANK_TAP`` is off by default; set, it receives the inputs of
+    every ranking a query runs, and ranking the last of them through the
+    plain version gives the query's answer (staged rows included)."""
+    from repro_torch.core import index as tindex
+    from repro_torch.kernels import ref
+    assert tindex.RANK_TAP is None
+    cfg = PFOConfig(**small_pfo_config(
+        max_leaves_per_tree=64, max_snapshots=3, cold_segments=4,
+        cold_cache_slots=12).__dict__)
+    idx = PFOIndex(cfg, device="cpu")
+    rng = np.random.default_rng(9)
+    vecs = rng.normal(size=(1500, cfg.dim)).astype(np.float32)
+    vecs /= np.linalg.norm(vecs, axis=1, keepdims=True)
+    for s in range(0, 1500, 300):
+        idx.insert(np.arange(s, s + 300, dtype=np.int32), vecs[s:s + 300])
+    seen = []
+    tindex.RANK_TAP = lambda **kw: seen.append(kw)
+    try:
+        ids, dists = idx.query(vecs[:16], 5)
+    finally:
+        tindex.RANK_TAP = None
+    assert seen
+    r = seen[-1]
+    assert r["staging"] is not None
+    assert (r["valid"] & (r["slots"] >= cfg.store_capacity)).any()
+    d = ref.ref_gather_rank(r["qvecs"], r["store"], r["slots"], r["valid"],
+                            cfg.metric, staging=r["staging"])
+    neg, at = torch.topk(-d, 5, dim=1)
+    want = torch.where(torch.isfinite(neg), r["cids"].gather(1, at), -1)
+    np.testing.assert_array_equal(ids, want.numpy())
+    np.testing.assert_array_equal(dists, (-neg).numpy())
+
+
 def test_loop_traversal_raises():
     with pytest.raises(NotImplementedError, match="masked"):
         PFOIndex(PFOConfig(**_cfg(traversal="loop").__dict__), device="cpu")
