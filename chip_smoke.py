@@ -17,16 +17,25 @@ Phases (any failure exits non-zero; there is no CPU fallback):
 4. the hot main path at a realistic size: ``PFOIndex.insert / query /
    delete`` on data shaped like ann-benchmarks' glove-100-angular
    (clustered unit vectors, d = 100, made from ``--seed``), with the
-   kernel launch counts set to 0 just before and read just after;
-5. the cold path at glove-100 width: 1,000,000 inserts with churn into
+   kernel launch counts set to 0 just before and read just after; its
+   recall@10 is measured against ``BruteForce`` (the ``pair_dist``
+   kernel), whose ids are also held against the plain version's;
+5. the paper's comparators on the hot path's own items and queries
+   (``baselines``): ``ZOrderIndex`` and ``MultiProbeFlat`` inserted and
+   queried beside PFO's answer, each with recall@10 and Eq. 1's error
+   ratio against ``BruteForce``; ``SerializedPFO`` against a dispatched
+   ``PFOIndex`` on 3,000 vectors, its forest equal on the CPU and on the
+   card; counts set to 0 just before each comparator and read just
+   after;
+6. the cold path at glove-100 width: 1,000,000 inserts with churn into
    an index whose store holds a quarter of them, spilling to file-backed
    segments; queries of cold-only items and deletes of them, counts set
    to 0 just before and read just after;
-6. each kernel against its plain version on the card, at the shapes its
+7. each kernel against its plain version on the card, at the shapes its
    path gave it, with its time, the plain version's time, one PyTorch
    library call's time and the least time the card could take (the
    bound);
-7. the card's name and power limit, then the last line:
+8. the card's name and power limit, then the last line:
    ``{"ok": true, "device": {...}}``.
 
 Everything worth keeping is printed as one JSON object per line.
@@ -34,6 +43,7 @@ Everything worth keeping is printed as one JSON object per line.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -49,9 +59,15 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch import convert  # noqa: E402
 from repro_torch.core import PFOConfig, PFOIndex  # noqa: E402
 from repro_torch.core import index as index_mod  # noqa: E402
+from repro_torch.core.baselines import (  # noqa: E402
+    BruteForce, MultiProbeFlat, SerializedPFO, ZOrderIndex)
+from repro_torch.core.lsh import region_ids  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.gather_rank import (  # noqa: E402
     gather_rank_cuda, gather_rank_staged_cuda)
+from repro_torch.kernels.hamming import _as_u32_bits  # noqa: E402
+from repro_torch.kernels.pair_dist import pair_dist_cuda  # noqa: E402
+from repro_torch.kernels.rank_candidates import rank_dots_cuda  # noqa: E402
 
 # published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bytes/s and
 # fp32 FLOP/s outside the tensor cores
@@ -59,13 +75,18 @@ PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
 MARGIN = 1e-4            # |projection| below this may flip a hash bit
 DIST_TOL = 1e-5          # distances, card vs CPU trace
-RANK_TOL = 2e-5          # gather_rank kernel vs plain (reference tolerance)
+RANK_TOL = 2e-5          # gather_rank, rank_dots vs plain (the reference)
+PAIR_TOL = 1e-4          # pair_dist vs plain (reference tolerance)
+TIE_TOL = 1e-5           # oracle ids may differ only across a near-tie
 GLOVE_ROWS = 1_183_514   # glove-100-angular's train rows ...
 ITEMS = 500_000          # ... cut for the hot path, to leave time for the cold
 QUERIES = 1024           # k = 10, half self-queries, half fresh vectors
 DELETES = 4096           # enough to fill the tombstone buffer and merge
 COLD_ITEMS = 1_000_000   # the cold path's inserts, in waves of COLD_WAVE
 COLD_WAVE = 4096
+FIG7_ITEMS = 3000        # paper_figs.fig7's larger n
+FIG7_CHECK = 300         # the prefix whose forest is held CPU vs card
+HAMMING_KEYS = 1 << 18   # stored keys the hamming row ranks against
 DEVICE = "cuda"
 
 
@@ -150,20 +171,42 @@ def device_profile(fn) -> dict:
                          for name, (n, ms) in top])
 
 
-def tap_ranking(fn):
-    """Run ``fn()`` with the query path's ranking inputs captured through
-    ``index.RANK_TAP``.  Returns fn's result, its wall seconds and copies
-    (the index updates its tensors in place) of the inputs of the last
-    ranking it ran, the one that gave the answer: ``cids, qvecs, store,
-    staging, slots, valid``."""
-    seen = []
-    index_mod.RANK_TAP = lambda **kw: seen.append(kw)
+@contextlib.contextmanager
+def tapped(module, name: str, keep):
+    """Within the block, ``module.name`` hands its arguments to
+    ``keep(*args, **kw)`` before it runs: a measurement reads a kernel's
+    inputs from the path itself instead of rebuilding them."""
+    real = getattr(module, name)
+
+    def wrapper(*args, **kw):
+        keep(*args, **kw)
+        return real(*args, **kw)
+
+    setattr(module, name, wrapper)
     try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def tap_ranking(fn):
+    """Run ``fn()`` with the query path's ranking inputs captured from
+    ``index._rank_candidates``.  Returns fn's result, its wall seconds
+    and copies (the index updates its tensors in place) of the inputs of
+    the last ranking it ran, the one that gave the answer: ``cids, qvecs,
+    store, staging, slots, valid``."""
+    seen = []
+
+    def keep(state, qvecs, cids, slot, found, cfg, k, staging=None):
+        valid = (cids >= 0) & found & (slot >= 0)
+        seen.append(dict(cids=cids, qvecs=qvecs, store=state.store.data,
+                         staging=staging, slots=torch.where(valid, slot, 0),
+                         valid=valid))
+
+    with tapped(index_mod, "_rank_candidates", keep):
         t0 = time.perf_counter()
         out = fn()
         secs = time.perf_counter() - t0
-    finally:
-        index_mod.RANK_TAP = None
     return out, secs, {k: None if v is None else v.clone()
                        for k, v in seen[-1].items()}
 
@@ -195,22 +238,26 @@ def small_config() -> PFOConfig:
                      snap_prefix_bits=8, snap_budget_per_probe=16)
 
 
+def safe_rows(x: np.ndarray, proj, cfg) -> np.ndarray:
+    """Rows whose table and partition projections all lie >= MARGIN from
+    zero in float64, so the two float summation orders cannot hash them
+    differently."""
+    table = proj["table_proj"].double().cpu().numpy()
+    part = proj["part_proj"].double().cpu().numpy()
+    p = x.astype(np.float64) @ table
+    bits = np.where(p >= 0, 1.0, -1.0).reshape(len(x), cfg.L, 32)
+    pp = np.einsum("nlm,lmc->nlc", bits, part)
+    return (np.abs(p).min(1) >= MARGIN) & (np.abs(pp).min((1, 2)) >= MARGIN)
+
+
 def safe_vectors(proj, cfg, n, seed):
-    """Seeded unit vectors whose table and partition projections all lie
-    >= MARGIN from zero in float64, so the two float summation orders
-    cannot hash them differently."""
+    """Seeded unit vectors that hash alike on the CPU and on the card."""
     rng = np.random.default_rng(seed)
-    table = proj["table_proj"].double().numpy()
-    part = proj["part_proj"].double().numpy()
     out = []
     while len(out) < n:
         x = rng.normal(size=(4 * n, cfg.dim)).astype(np.float32)
         x /= np.linalg.norm(x, axis=1, keepdims=True)
-        p = x.astype(np.float64) @ table
-        bits = np.where(p >= 0, 1.0, -1.0).reshape(len(x), cfg.L, 32)
-        pp = np.einsum("nlm,lmc->nlc", bits, part)
-        ok = (np.abs(p).min(1) >= MARGIN) & (np.abs(pp).min((1, 2)) >= MARGIN)
-        out.extend(x[ok])
+        out.extend(x[safe_rows(x, proj, cfg)])
     return np.stack(out[:n])
 
 
@@ -380,21 +427,53 @@ def phase_cold_trace(seed: int):
 # ----------------------------------------------------------------------
 # phase 4: the hot main path at a realistic size
 # ----------------------------------------------------------------------
-def exact_topk(store: torch.Tensor, q: torch.Tensor, k: int):
-    """Exact angular kNN over the whole store, in row chunks."""
-    qn = q / q.norm(dim=1, keepdim=True)
-    best_d = torch.full((q.shape[0], k), float("inf"), device=q.device)
-    best_i = torch.full((q.shape[0], k), -1, dtype=torch.int64,
-                        device=q.device)
-    for s in range(0, store.shape[0], 1 << 18):
-        x = store[s:s + (1 << 18)]
-        d = 1.0 - qn @ (x / x.norm(dim=1, keepdim=True).clamp_min(1e-9)).T
-        d, i = torch.topk(torch.cat([best_d, d], 1), k, dim=1, largest=False)
-        best_i = torch.cat([best_i, torch.arange(s, s + x.shape[0],
-                                                 device=q.device)
-                            .expand(q.shape[0], -1)], 1).gather(1, i)
-        best_d = d
-    return best_i, best_d
+def exact_oracle(cfg, ids, vecs, q):
+    """Exact top-11 of each query among (ids, vecs) through ``BruteForce``,
+    i.e. the ported ``pair_dist`` kernel.  Returns host ids and distances
+    (Q, 11), the launches it made, the (qn, xn) its pair_dist got and the
+    query's seconds."""
+    seen = []
+    before = dict(ops.LAUNCHES)
+    bf = BruteForce(cfg, device=vecs.device)
+    bf.insert(ids, vecs)
+    with tapped(ops, "pair_dist_sq", lambda qq, xx: seen.append((qq, xx))):
+        t0 = time.perf_counter()
+        got = bf.query(q, 11)
+        secs = time.perf_counter() - t0
+    launches = {k: ops.LAUNCHES[k] - before[k] for k in before}
+    check(launches["pair_dist"] == 1, f"BruteForce ran no pair_dist: "
+          f"{launches}")
+    return got, launches, seen[-1], secs
+
+
+def plain_oracle_misses(ids, xin, truth, truth_d):
+    """The oracle again through pair_dist's plain version, on the inputs
+    the kernel got.  Returns (rows whose top-10 id sets differ, rows whose
+    10th and 11th distances lie within TIE_TOL); a differing row must be
+    a near-tie."""
+    qn, xn = xin
+    pd = 0.5 * ref.ref_pair_dist(qn, xn)
+    plain = ids[torch.topk(-pd, 10, dim=1).indices].cpu().numpy()
+    del pd
+    differ = np.array([set(plain[i]) != set(truth[i, :10])
+                       for i in range(len(plain))])
+    near = np.abs(truth_d[:, 10] - truth_d[:, 9]) <= TIE_TOL
+    check(not (differ & ~near).any(), f"{int((differ & ~near).sum())} "
+          "oracle rows differ from the plain version without a near-tie")
+    return int(differ.sum()), int(near.sum())
+
+
+def error_ratio(query_d, oracle_d, k: int) -> float:
+    """Paper Eq. 1 with the paper's penalty: a missing neighbour counts as
+    similarity 0 (angular distance 1.0), as ``benchmarks/common.py``."""
+    qd = np.where(np.isfinite(query_d[:, :k]), query_d[:, :k], 1.0)
+    od = np.maximum(oracle_d[:, :k], 1e-6)
+    return float(np.mean(qd / od))
+
+
+def recall_at(got_ids, truth, k: int = 10) -> np.ndarray:
+    return np.array([len(set(got_ids[i]) & set(truth[i, :k])) / k
+                     for i in range(len(got_ids))])
 
 
 def phase_main(args):
@@ -491,13 +570,13 @@ def phase_main(args):
     check(idx.stats()["overflow_events"] == 0, "arena overflow")
     check("merge" in idx.maintenance_log, "deletes did not drive a merge")
 
-    # recall@10 against an exact search of the live store contents
-    truth_rows, _ = exact_topk(vecs, q, 10)
-    truth = ids[truth_rows].cpu().numpy()
-    recall = float(np.mean([len(set(got_ids[i]) & set(truth[i])) / 10
-                            for i in range(nq)]))
-    fresh_recall = float(np.mean([len(set(got_ids[i]) & set(truth[i])) / 10
-                                  for i in range(nq // 2, nq)]))
+    # recall@10 against the exact oracle over the items live at query
+    # time (all of them: the deletes came after), held against the
+    # oracle's plain version
+    (truth, truth_d), oracle_launches, oracle_in, t_oracle = exact_oracle(
+        cfg, ids, vecs, q)
+    differ, near = plain_oracle_misses(ids, oracle_in, truth, truth_d)
+    recall = recall_at(got_ids, truth)
     emit(phase="main_path", items=n, dim=cfg.dim,
          reduced=[f"items {GLOVE_ROWS} -> {n}: leaves the run's time to "
                   "the cold path (and a merge keeps one segment of 2^20 "
@@ -507,7 +586,11 @@ def phase_main(args):
          seals=idx.maintenance_log.count("seal"),
          merges=idx.maintenance_log.count("merge"),
          queries=nq, query_s=t_q, queries_per_s=nq / t_q,
-         recall_at_10=recall, recall_at_10_fresh=fresh_recall,
+         recall_at_10=float(recall.mean()),
+         recall_at_10_fresh=float(recall[nq // 2:].mean()),
+         oracle="BruteForce (pair_dist)", oracle_launches=oracle_launches,
+         oracle_rows_differing_from_plain=differ,
+         oracle_near_tie_rows=near,
          self_rank0_rate=float(rank0.mean()),
          fresh_answered_rate=float((got_ids[nq // 2:, 0] >= 0).mean()),
          self_in_candidates_rate=float(in_cand.mean()),
@@ -519,11 +602,163 @@ def phase_main(args):
          stats=idx.stats(),
          last_insert_profile=profile,
          maintenance=idx.maintenance_log)
-    return idx, ranked, launches
+    hot = dict(ids=ids, vecs=vecs, q=q, got_ids=got_ids, got_d=got_d,
+               truth=truth, truth_d=truth_d, oracle_in=oracle_in,
+               oracle_launches=oracle_launches["pair_dist"],
+               oracle_queries_per_s=nq / t_oracle,
+               inserts_per_s=n / t_ins, queries_per_s=nq / t_q,
+               candidates_per_query=n_cand, proj=idx.state.proj)
+    return idx, ranked, launches, hot
 
 
 # ----------------------------------------------------------------------
-# phase 5: the cold path at glove-100 width
+# phase 5: the paper's comparators on the hot path's items and queries
+# ----------------------------------------------------------------------
+def run_comparator(index, ids, vecs, q, batch: int, keep_dots: bool):
+    """Insert (ids, vecs) in batches and answer q once, with the launch
+    counts set to 0 just before and read just after.  Returns the answer,
+    insert and query seconds, the launches, each query's candidate count
+    (the valid entries ``pairwise_rank`` got) and, with ``keep_dots``,
+    the inputs of every ``rank_dots`` the query ran."""
+    ranks, dots = [], []
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    for s in range(0, ids.shape[0], batch):
+        index.insert(ids[s:s + batch], vecs[s:s + batch])
+    torch.cuda.synchronize()
+    t_ins = time.perf_counter() - t0
+    with tapped(ops, "pairwise_rank",
+                lambda qq, cand, valid, metric: ranks.append(valid.sum(1))), \
+            tapped(ops, "rank_dots", lambda qq, xx: dots.append(
+                (qq, xx) if keep_dots else None)):
+        t0 = time.perf_counter()
+        got = index.query(q, 10)
+        t_q = time.perf_counter() - t0
+    return got, t_ins, t_q, dict(ops.LAUNCHES), torch.cat(ranks), dots
+
+
+def phase_serialized(cfg, proj, seed: int):
+    """Fig. 7 at the hot config's widths: SerializedPFO (one global order)
+    against a dispatched PFOIndex on the same FIG7_ITEMS clustered
+    vectors (those that hash alike on the CPU and the card), and the
+    serialized forest on the card after the first FIG7_CHECK vectors
+    against the same apply on the CPU (the serial apply is the same
+    whether it runs in one call or two)."""
+    x = clustered(4 * FIG7_ITEMS, cfg.dim, seed + 3, "cpu").numpy()
+    vecs = x[safe_rows(x, proj, cfg)][:FIG7_ITEMS]
+    check(len(vecs) == FIG7_ITEMS, "too few vectors hash alike")
+    ids = np.arange(FIG7_ITEMS, dtype=np.int32)
+    head = slice(0, FIG7_CHECK)
+    host = SerializedPFO(cfg, device="cpu", proj=proj)
+    t0 = time.perf_counter()
+    host.insert(ids[head], vecs[head])
+    secs_cpu = time.perf_counter() - t0
+    ser = SerializedPFO(cfg, device=DEVICE, proj=proj)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ser.insert(ids[head], vecs[head])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    for name, a in host.forest._asdict().items():
+        check(torch.equal(a, getattr(ser.forest, name).cpu()),
+              f"SerializedPFO: {name} differs between the CPU and the card")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ser.insert(ids[FIG7_CHECK:], vecs[FIG7_CHECK:])
+    torch.cuda.synchronize()
+    secs += time.perf_counter() - t0
+    # the dispatched apply of the same requests (one warm-up index first)
+    PFOIndex(cfg, device=DEVICE, proj=proj).insert(ids, vecs)
+    idx = PFOIndex(cfg, device=DEVICE, proj=proj)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rounds = idx.insert(ids, vecs)
+    torch.cuda.synchronize()
+    t_disp = time.perf_counter() - t0
+    # work (requests) against critical-path depth (the longest mailbox)
+    xv = torch.from_numpy(vecs).to(DEVICE)
+    h = ops.lsh_hash(xv, proj["table_proj"].to(DEVICE), cfg.M)
+    trees = (region_ids(h, proj["part_proj"].to(DEVICE), cfg)
+             + torch.arange(cfg.L, device=DEVICE)[None] * cfg.n_trees)
+    counts = torch.bincount(trees.reshape(-1), minlength=cfg.L * cfg.n_trees)
+    work, depth = int(counts.sum()), int(counts.max())
+    landed = int(ser.forest.n_items.sum())
+    check(landed + int(ser.forest.overflow.sum()) == work,
+          f"SerializedPFO: {landed} records landed of {work} requests")
+    per_op = secs / work
+    return dict(items=FIG7_ITEMS, requests=work, critical_path_depth=depth,
+                ideal_speedup=work / depth,
+                serialized_insert_s=secs,
+                checked_items=FIG7_CHECK,
+                serialized_check_s_cpu=secs_cpu,
+                dispatched_insert_s=t_disp, dispatched_rounds=rounds,
+                serialized_over_dispatched=secs / t_disp,
+                parallel_time_est_s=depth * per_op,
+                forest_equal_cpu_card=True,
+                forest_leaves=landed)
+
+
+def phase_baselines(args, hot):
+    """ZOrderIndex and MultiProbeFlat (the reference's defaults, L = 10)
+    on the hot path's items and queries, beside PFO's own answer, scored
+    against the hot path's BruteForce oracle; then Fig. 7.  Returns the
+    inputs of the kernel rows it feeds: rank_dots' (ZOrderIndex's block),
+    hamming's (MultiProbeFlat's keys) and each comparator's rank_dots
+    launches."""
+    cfg = main_config()
+    dev = torch.device(DEVICE)
+    ids, vecs, q = hot["ids"], hot["vecs"], hot["q"]
+    n, nq = ids.shape[0], q.shape[0]
+    proj = {k: v.detach() for k, v in hot["proj"].items()}
+    truth, truth_d = hot["truth"][:, :10], hot["truth_d"][:, :10]
+
+    def scores(got_ids, got_d):
+        rec = recall_at(got_ids, truth)
+        return dict(recall_at_10=float(rec.mean()),
+                    recall_at_10_fresh=float(rec[nq // 2:].mean()),
+                    error_ratio=error_ratio(got_d, truth_d, 10),
+                    error_ratio_fresh=error_ratio(got_d[nq // 2:],
+                                                  truth_d[nq // 2:], 10))
+
+    out = dict(pfo=dict(inserts_per_s=hot["inserts_per_s"],
+                        queries_per_s=hot["queries_per_s"],
+                        candidates_per_query=hot["candidates_per_query"],
+                        **scores(hot["got_ids"], hot["got_d"])))
+    feeds = {}
+    for name, cls in (("zorder", ZOrderIndex), ("multiprobe", MultiProbeFlat)):
+        index = cls(cfg, device=dev, proj=proj)
+        (got_ids, got_d), t_ins, t_q, launches, n_cand, dots = run_comparator(
+            index, ids, vecs, q, 4096, keep_dots=name == "zorder")
+        check(launches["rank_dots"] >= 1, f"{name} ran no rank_dots: "
+              f"{launches}")
+        check(got_ids.shape == (nq, 10) and np.array_equal(
+            got_ids >= 0, np.isfinite(got_d)), f"{name}: answer shape")
+        out[name] = dict(inserts_per_s=n / t_ins, insert_s=t_ins,
+                         queries_per_s=nq / t_q, query_s=t_q,
+                         candidates_per_query=float(n_cand.float().mean()),
+                         candidates_max=int(n_cand.max()),
+                         launches=launches, **scores(got_ids, got_d))
+        feeds[name] = launches["rank_dots"]
+        if name == "zorder":
+            feeds["dots_in"] = dots[-1]
+        else:
+            feeds["keys"] = (index._buckets(q)[1],
+                             index._buckets(vecs[:HAMMING_KEYS])[1])
+            out[name]["bucket_fill_max"] = int(index.bucket_fill.max())
+        del index
+    out["bruteforce"] = dict(queries_per_s=hot["oracle_queries_per_s"],
+                             candidates_per_query=n,
+                             pair_dist_launches=hot["oracle_launches"])
+    out["serialized"] = phase_serialized(cfg, {k: v.cpu() for k, v in
+                                               proj.items()}, args.seed)
+    emit(phase="baselines", items=n, queries=nq, dim=cfg.dim, L=cfg.L,
+         **out)
+    return feeds
+
+
+# ----------------------------------------------------------------------
+# phase 6: the cold path at glove-100 width
 # ----------------------------------------------------------------------
 COLD_TOMBSTONES = 1 << 17
 COLD_BUDGET = 256
@@ -658,10 +893,10 @@ def phase_cold_main(args):
     rank0 = got_ids[: nq // 2, 0] == self_ids
     in_cand = (cids == self_ids[:, None]).any(1)
 
-    # recall@10 against an exact search of the items live at query time
-    truth_rows, _ = exact_topk(vecs[live_rows], q, 10)
-    truth = ids[live_rows][truth_rows].cpu().numpy()
-    recall = [len(set(got_ids[i]) & set(truth[i])) / 10 for i in range(nq)]
+    # recall@10 against the exact oracle over the items live at query time
+    (truth, _), oracle_launches, _, _ = exact_oracle(cfg, ids[live_rows],
+                                                     vecs[live_rows], q)
+    recall = recall_at(got_ids, truth)
     staged = q_stats["staged_ranked"]
     emit(phase="cold_path", items=n, live_items=n_live, dim=cfg.dim,
          config={k: getattr(cfg, k) for k in (
@@ -679,8 +914,9 @@ def phase_cold_main(args):
          maintenance={m: idx.maintenance_log.count(m) for m in (
              "seal", "spill", "merge", "cold_compact")},
          queries=nq, query_s=t_q, queries_per_s=nq / t_q,
-         recall_at_10=float(np.mean(recall)),
-         recall_at_10_fresh=float(np.mean(recall[nq // 2:])),
+         recall_at_10=float(recall.mean()),
+         recall_at_10_fresh=float(recall[nq // 2:].mean()),
+         oracle="BruteForce (pair_dist)", oracle_launches=oracle_launches,
          self_rank0_rate=float(rank0.mean()),
          self_in_candidates_rate=float(in_cand.mean()),
          self_missed_not_cut=int(bad.sum()),
@@ -697,11 +933,11 @@ def phase_cold_main(args):
     idx.cold._discard_worker()           # no fold may read the files now
     del idx
     tmp.cleanup()
-    return ranked, launches
+    return ranked, launches, oracle_launches["pair_dist"]
 
 
 # ----------------------------------------------------------------------
-# phase 6: each kernel against its plain version, timed, with its bound
+# phase 7: each kernel against its plain version, timed, with its bound
 # ----------------------------------------------------------------------
 def phase_kernels(idx, ranked, launches):
     cfg, st = idx.cfg, idx.state
@@ -769,6 +1005,96 @@ def phase_kernels(idx, ranked, launches):
         bound_ms=b_ms, bound_by=b_by,
         library_ms=cuda_ms(lambda: torch.bmm(block, qn[:, :, None]))))
     return rows
+
+
+def pair_dist_row(xin, launches: dict) -> dict:
+    """pair_dist on the hot oracle's own inputs: 1024 unit queries against
+    the 500,000 unit items.  ``launches`` counts it by path.  The kernel,
+    its plain version and the library call are each timed from the
+    vectors alone: the kernel through ``pair_dist_cuda``, the wrapper the
+    path runs, which computes the norms before its launch."""
+    qn, xn = xin
+    got = pair_dist_cuda(qn, xn)
+    plain = ref.ref_pair_dist(qn, xn)
+    err = float((got - plain).abs().max())
+    torch.testing.assert_close(got, plain, rtol=PAIR_TOL, atol=PAIR_TOL)
+    del got, plain
+    nq, d = qn.shape
+    n = xn.shape[0]
+    ms = cuda_ms(lambda: pair_dist_cuda(qn, xn))
+    b_ms, b_by = bound_ms(4 * (nq * d + n * d + nq * n),
+                          2 * nq * n * d + 3 * nq * n + 2 * (nq + n) * d)
+    return dict(
+        name="pair_dist", route="cuda",
+        source="src/repro_torch/kernels/csrc/pair_dist.cu",
+        replaces="src/repro/kernels/pair_dist.py:56",
+        launches=sum(launches.values()), launches_by_path=launches,
+        max_abs_err=err, shape=[nq, n, d], ms=ms, timed="norms included",
+        plain_ms=cuda_ms(lambda: ref.ref_pair_dist(qn, xn), iters=5),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_ms(lambda: torch.cdist(qn, xn).square(), iters=5),
+        library_call="torch.cdist(q, x).square()")
+
+
+def rank_dots_row(xin, launches: dict) -> dict:
+    """rank_dots on ZOrderIndex's own gathered (Q, 2*window, d) block."""
+    qn, x = xin
+    got = rank_dots_cuda(qn, x)
+    plain = ref.ref_rank_dots(qn, x)
+    err = float((got - plain).abs().max())
+    torch.testing.assert_close(got, plain, rtol=RANK_TOL, atol=RANK_TOL)
+    nq, c, d = x.shape
+    out = torch.empty((nq, c), device=qn.device)
+    fn = _build.load("rank_dots")
+    stream = torch.cuda.current_stream().cuda_stream
+    ms = cuda_ms(lambda: fn(qn.data_ptr(), x.data_ptr(), out.data_ptr(), nq,
+                            c, d, stream))
+    b_ms, b_by = bound_ms(4 * (nq * d + nq * c * d + nq * c), 2 * nq * c * d)
+    return dict(
+        name="rank_dots", route="cuda",
+        source="src/repro_torch/kernels/csrc/rank_dots.cu",
+        replaces="src/repro/kernels/rank_candidates.py:52",
+        launches=sum(launches.values()), launches_by_path=launches,
+        max_abs_err=err, shape=[nq, c, d], ms=ms,
+        plain_ms=cuda_ms(lambda: ref.ref_rank_dots(qn, x)),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_ms(lambda: torch.bmm(x, qn[:, :, None])),
+        library_call="torch.bmm(x, q[:, :, None])")
+
+
+def hamming_row(keys) -> dict:
+    """hamming on MultiProbeFlat's own keys: its 1024 query keys against
+    the first HAMMING_KEYS stored items' keys (W = L words).  Nothing on
+    any path calls it (the JAX package only names it), so its launches
+    are this row's own."""
+    a, b = keys
+    before = ops.LAUNCHES["hamming"]
+    got = ops.hamming(a, b)
+    launches = ops.LAUNCHES["hamming"] - before
+    plain = ref.ref_hamming(a, b)
+    exact = torch.equal(got, plain)
+    check(exact, "hamming: differs from its plain version")
+    del got, plain
+    nq, w = a.shape
+    n = b.shape[0]
+    a32, b32 = _as_u32_bits(a), _as_u32_bits(b)
+    out = torch.empty((nq, n), dtype=torch.int32, device=a.device)
+    fn = _build.load("hamming")
+    stream = torch.cuda.current_stream().cuda_stream
+    ms = cuda_ms(lambda: fn(a32.data_ptr(), b32.data_ptr(), out.data_ptr(),
+                            nq, n, w, stream))
+    # 32-bit xor, popcount and add per word, at the card's fp32 op rate
+    # (the table has no integer rate outside the tensor cores)
+    b_ms, b_by = bound_ms(4 * (nq * w + n * w + nq * n), 3 * nq * n * w)
+    return dict(
+        name="hamming", route="cuda",
+        source="src/repro_torch/kernels/csrc/hamming.cu",
+        replaces="src/repro/kernels/hamming.py:43",
+        launches=launches, launches_from="this row (no path calls it)",
+        max_abs_err=0 if exact else None, shape=[nq, n, w], ms=ms,
+        plain_ms=cuda_ms(lambda: ref.ref_hamming(a, b), iters=5),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        library_call="none: no single PyTorch call computes it")
 
 
 def staged_row(ranked, launches, metric: str) -> dict:
@@ -843,18 +1169,31 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else ""
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "float32 products must not run in TF32 (the plain versions)")
     t0 = time.perf_counter()
     build_s = _build.build()
     emit(phase="build", torch=torch.__version__, cuda=torch.version.cuda,
          card=card, nvcc_s=build_s, build_s=time.perf_counter() - t0)
     phase_trace(args.seed)
     phase_cold_trace(args.seed)
-    idx, ranked, launches = phase_main(args)
+    idx, ranked, launches, hot = phase_main(args)
     rows = phase_kernels(idx, ranked, launches)
     del idx, ranked
     torch.cuda.empty_cache()
-    ranked, cold_launches = phase_cold_main(args)
-    rows.append(staged_row(ranked, cold_launches, cold_config().metric))
+    feeds = phase_baselines(args, hot)
+    pair_launches = dict(hot_oracle=hot["oracle_launches"])
+    rows.append(rank_dots_row(feeds["dots_in"], dict(
+        zorder=feeds["zorder"], multiprobe=feeds["multiprobe"])))
+    rows.append(hamming_row(feeds["keys"]))
+    oracle_in = hot["oracle_in"]
+    del hot, feeds
+    torch.cuda.empty_cache()
+    ranked, cold_launches, pair_launches["cold_oracle"] = phase_cold_main(args)
+    rows.insert(2, staged_row(ranked, cold_launches, cold_config().metric))
+    del ranked
+    torch.cuda.empty_cache()
+    rows.insert(3, pair_dist_row(oracle_in, pair_launches))
     emit(kernels=rows)
     print(card, flush=True)
     emit(ok=True, device={"platform": "gpu",

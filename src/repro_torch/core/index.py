@@ -39,6 +39,7 @@ from ..obs import Obs
 from . import coldtier
 from . import snapshots as snap_mod
 from .config import PFOConfig
+from .device import default_device
 from .dispatch import (FLAG_ANY_PENDING, FLAG_COLD_FULL, FLAG_COLD_MISS,
                        FLAG_COLD_SPILL, FLAG_NEED_SEAL, FLAG_SNAPS_FULL,
                        FLAG_STORE_FULL, FLAG_TOMBS_FULL, dispatch_to_trees,
@@ -54,13 +55,6 @@ from .store import (DenseStore, dense_alloc, dense_free, dense_init,
                     dense_read_tiered)
 
 INT_MAX = 2**31 - 1
-
-#: Debug hook, off (None) by default: a callable that
-#: :func:`_rank_candidates` hands the inputs of every ranking it runs to,
-#: as keywords ``cids, qvecs, store, staging, slots, valid``.  A
-#: measurement reads the query path's own kernel inputs through it
-#: instead of rebuilding them.
-RANK_TAP = None
 
 
 def lsh_tree_config(cfg: PFOConfig) -> TreeConfig:
@@ -332,9 +326,6 @@ def _rank_candidates(state: PFOState, qvecs: torch.Tensor, cids: torch.Tensor,
     it (the staged kernel)."""
     valid = (cids >= 0) & found & (slot >= 0)
     slots = torch.where(valid, slot, 0)
-    if RANK_TAP is not None:
-        RANK_TAP(cids=cids, qvecs=qvecs, store=state.store.data,
-                 staging=staging, slots=slots, valid=valid)
     idx, top_d = kops.gather_rank_topk(qvecs, state.store.data, slots, valid,
                                        k, cfg.metric, staging=staging)
     top_ids = cids.gather(1, idx)
@@ -532,16 +523,6 @@ def _pickup(tensors) -> list[np.ndarray]:
     return out
 
 
-def _default_device(device):
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError("repro_torch runs on CUDA; no CUDA device is "
-                           "available (pass device='cpu' to run the plain "
-                           "versions of the kernels on the CPU)")
-    return torch.device("cuda")
-
-
 class PFOIndex:
     """Host-side orchestrator: owns the device state, runs dispatch rounds and
     seal/merge epochs (the paper's maintenance routines).
@@ -567,7 +548,7 @@ class PFOIndex:
                  proj: dict | None = None, obs: Obs | None = None,
                  cold_dir: str | None = None):
         self.cfg = cfg
-        self.device = _default_device(device)
+        self.device = default_device(device)
         if proj is None:
             proj = make_projections(cfg, torch.Generator().manual_seed(seed),
                                     self.device)

@@ -45,6 +45,14 @@ ENTRY_POINTS = {
     "gather_rank_staged": ("gather_rank", "gather_rank_staged_launch",
                            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _P]),
+    # q, x, qs, xs, out, nq, n, d, stream
+    "pair_dist": ("pair_dist", "pair_dist_launch",
+                  [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    # q, x, out, nq, c, d, stream
+    "rank_dots": ("rank_dots", "rank_dots_launch",
+                  [_P, _P, _P, _I, _I, _I, _P]),
+    # a, b, out, nq, n, w, stream
+    "hamming": ("hamming", "hamming_launch", [_P, _P, _P, _I, _I, _I, _P]),
 }
 
 _FNS: dict = {}                   # name -> loaded entry point

@@ -26,6 +26,21 @@ def ref_lsh_hash(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     return (bits * w).sum(-1)
 
 
+def ref_rank_dots(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """(Q, d) x (Q, C, d) -> (Q, C) f32 inner products of each query with
+    its own candidate block."""
+    return torch.einsum("qd,qcd->qc", q.float(), x.float())
+
+
+def ref_pair_dist(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """(Q, d) x (N, d) -> (Q, N) f32 squared L2 distances,
+    ``max(|q|^2 + |x|^2 - 2 q.x, 0)``."""
+    q, x = q.float(), x.float()
+    qs = (q * q).sum(-1)[:, None]
+    xs = (x * x).sum(-1)[None, :]
+    return (qs + xs - 2.0 * (q @ x.T)).clamp_min(0.0)
+
+
 def ref_gather_rank(q: torch.Tensor, store: torch.Tensor, slots: torch.Tensor,
                     valid: torch.Tensor, metric: str,
                     staging: torch.Tensor | None = None) -> torch.Tensor:
@@ -54,3 +69,24 @@ def ref_gather_rank(q: torch.Tensor, store: torch.Tensor, slots: torch.Tensor,
         xs = (x * x).sum(-1)
         d = (qs + xs - 2.0 * dots).clamp_min(0.0)
     return torch.where(valid.bool(), d, torch.full_like(d, float("inf")))
+
+
+def _popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of each value in [0, 2^32) (int64), the SWAR popcount of
+    the JAX package's uint32 oracle with every step masked to 32 bits."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
+def ref_hamming(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(Q, W) x (N, W) keys in [0, 2^32) (int64, as ``lsh_hash`` returns
+    them) -> (Q, N) int32 total bit differences.  Summed word by word, so
+    no (Q, N, W) block is built."""
+    a, b = a.to(torch.int64), b.to(torch.int64)
+    out = torch.zeros((a.shape[0], b.shape[0]), dtype=torch.int64,
+                      device=a.device)
+    for w in range(a.shape[1]):
+        out += _popcount32(a[:, w, None] ^ b[None, :, w])
+    return out.to(torch.int32)

@@ -25,6 +25,17 @@ RANK_SHAPES = [(1, 1, 1, 8), (3, 7, 13, 5), (8, 128, 100, 64),
 #: (q, c, n store rows, m staging rows, d): ragged d, N and M
 STAGED_SHAPES = [(1, 1, 1, 1, 8), (3, 7, 13, 4, 5), (8, 128, 100, 37, 64),
                  (5, 130, 41, 300, 17), (16, 96, 500, 1000, 100)]
+#: tolerances of the reference's kernel tests (tests/test_kernels.py)
+DOTS_TOL = 2e-5
+PAIR_TOL = 1e-4
+#: (q, c, d) for rank_dots, (q, n, d) for pair_dist, (q, n, w) for hamming:
+#: the reference's sweeps, plus 1s, d = 100 and non-multiples of the tiles
+DOTS_SHAPES = [(1, 1, 8), (5, 33, 48), (8, 128, 128), (9, 130, 65),
+               (1, 1, 1), (3, 65, 100)]
+PAIR_SHAPES = [(1, 1, 8), (5, 57, 48), (128, 128, 256), (33, 200, 100),
+               (1, 1, 1), (129, 131, 9), (130, 300, 100)]
+HAMMING_SHAPES = [(1, 1, 1), (9, 13, 4), (130, 70, 10), (33, 257, 10),
+                  (2, 300, 41)]
 
 
 def hash_inputs(n, d, tables, seed):
@@ -61,6 +72,28 @@ def staged_inputs(q, c, n, m, d, seed):
             rng.random((q, c)) < 0.7)
 
 
+def dots_inputs(q, c, d, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(q, d)).astype(np.float32),
+            rng.normal(size=(q, c, d)).astype(np.float32))
+
+
+def pair_inputs(q, n, d, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(q, d)).astype(np.float32),
+            rng.normal(size=(n, d)).astype(np.float32))
+
+
+def key_inputs(q, n, w, seed):
+    """uint32 keys as int64 (the port's carrier), the extremes included."""
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, 2**32, size=(q, w), dtype=np.uint64).astype(np.int64)
+    b = rng.integers(0, 2**32, size=(n, w), dtype=np.uint64).astype(np.int64)
+    a.reshape(-1)[:2] = [0, 0xFFFFFFFF][:a.size]
+    b.reshape(-1)[-2:] = [0xFFFFFFFF, 0x80000000][-b.size:]
+    return a, b
+
+
 def _t(*arrays):
     """numpy arrays -> CPU tensors."""
     return tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in arrays)
@@ -76,13 +109,26 @@ def test_each_launch_counts_once_on_card():
     args = _t(*rank_inputs(2, 3, 5, 16, seed=2))
     ops.gather_rank(*(v.cuda() for v in args), "l2")
     assert ops.LAUNCHES == {"lsh_hash": 1, "gather_rank": 1,
-                            "gather_rank_staged": 0}
+                            "gather_rank_staged": 0, "pair_dist": 0,
+                            "rank_dots": 0, "hamming": 0}
     q, store, staging, slots, valid = (v.cuda() for v in _t(
         *staged_inputs(2, 3, 5, 4, 16, seed=3)))
     ops.gather_rank(q, store, slots, valid, "angular", staging=staging)
     ops.gather_rank(q, store, slots, valid, "l2", staging=staging)
     assert ops.LAUNCHES == {"lsh_hash": 1, "gather_rank": 1,
-                            "gather_rank_staged": 2}
+                            "gather_rank_staged": 2, "pair_dist": 0,
+                            "rank_dots": 0, "hamming": 0}
+    qq, x = (v.cuda() for v in _t(*pair_inputs(3, 5, 16, seed=4)))
+    ops.pair_dist_sq(qq, x)
+    ops.brute_force_topk(qq, x, 2, "angular")
+    qq, block = (v.cuda() for v in _t(*dots_inputs(3, 5, 16, seed=5)))
+    ops.rank_dots(qq, block)
+    ops.pairwise_rank(qq, block, torch.ones((3, 5), dtype=torch.bool,
+                                            device="cuda"), "l2")
+    ops.hamming(*(v.cuda() for v in _t(*key_inputs(3, 5, 2, seed=6))))
+    assert ops.LAUNCHES == {"lsh_hash": 1, "gather_rank": 1,
+                            "gather_rank_staged": 2, "pair_dist": 2,
+                            "rank_dots": 2, "hamming": 1}
 
 
 @pytest.mark.cuda
@@ -141,3 +187,108 @@ def test_staged_rows_rank_bit_identically_on_card(metric):
     a = ops.gather_rank(qq, store, slots, valid, metric)
     b = ops.gather_rank(qq, store, staged, valid, metric, staging=staging)
     assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,c,d", DOTS_SHAPES)
+def test_rank_dots_kernel_matches_plain_on_card(q, c, d):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    qq, x = _t(*dots_inputs(q, c, d, seed=q + c + d))
+    got = ops.rank_dots(qq.cuda(), x.cuda()).cpu()
+    torch.testing.assert_close(got, ref.ref_rank_dots(qq, x), rtol=DOTS_TOL,
+                               atol=DOTS_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,n,d", PAIR_SHAPES)
+def test_pair_dist_kernel_matches_plain_on_card(q, n, d):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    qq, x = _t(*pair_inputs(q, n, d, seed=q + n + d))
+    got = ops.pair_dist_sq(qq.cuda(), x.cuda()).cpu()
+    torch.testing.assert_close(got, ref.ref_pair_dist(qq, x), rtol=PAIR_TOL,
+                               atol=PAIR_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,n,w", HAMMING_SHAPES)
+def test_hamming_kernel_exact_on_card(q, n, w):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    a, b = _t(*key_inputs(q, n, w, seed=q + n + w))
+    got = ops.hamming(a.cuda(), b.cuda()).cpu()
+    assert got.dtype == torch.int32
+    assert torch.equal(got, ref.ref_hamming(a, b))
+
+
+@pytest.mark.cuda
+def test_hamming_kernel_all_ones_and_identical_keys_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    a, _ = _t(*key_inputs(37, 1, 10, seed=9))
+    ones = torch.full((5, 10), 0xFFFFFFFF, dtype=torch.int64)
+    zeros = torch.zeros((3, 10), dtype=torch.int64)
+    same = ops.hamming(a.cuda(), a.cuda()).cpu()
+    assert (same.diagonal() == 0).all()
+    assert torch.equal(same, same.T)
+    assert (ops.hamming(ones.cuda(), ones.cuda()) == 0).all()
+    assert (ops.hamming(ones.cuda(), zeros.cuda()) == 320).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["angular", "l2"])
+def test_pairwise_rank_and_brute_force_match_plain_on_card(metric):
+    """Both metrics through the two wrappers the comparators use: the
+    card's answers against the CPU's plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    qq, block = _t(*dots_inputs(7, 130, 100, seed=11))
+    valid = torch.from_numpy(np.random.default_rng(12).random((7, 130)) < 0.7)
+    got = ops.pairwise_rank(qq.cuda(), block.cuda(), valid.cuda(),
+                            metric).cpu()
+    want = ops.pairwise_rank(qq, block, valid, metric)
+    assert torch.equal(torch.isinf(got), ~valid)
+    torch.testing.assert_close(got, want, rtol=DOTS_TOL, atol=DOTS_TOL)
+    qq, x = _t(*pair_inputs(33, 1000, 100, seed=13))
+    live = torch.from_numpy(np.random.default_rng(14).random(1000) < 0.8)
+    idx, d = ops.brute_force_topk(qq.cuda(), x.cuda(), 10, metric,
+                                  valid=live.cuda())
+    widx, wd = ops.brute_force_topk(qq, x, 10, metric, valid=live)
+    assert torch.equal(idx.cpu(), widx)
+    torch.testing.assert_close(d.cpu(), wd, rtol=PAIR_TOL, atol=PAIR_TOL)
+
+
+@pytest.mark.cuda
+def test_sparse_store_writes_reads_and_frees_on_card():
+    """The SparseStore lands on the card when no device is named, and a
+    seeded write / read / free sequence leaves it equal, field for field,
+    to the same sequence on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core import store
+    card, host = store.sparse_init(10, 4), store.sparse_init(10, 4, "cpu")
+    assert card.idx.device.type == "cuda"
+    rng = np.random.default_rng(15)
+    live = []
+    for _ in range(30):
+        if live and rng.random() < 0.4:
+            head = live.pop(int(rng.integers(len(live))))
+            card = store.sparse_free(card, head, max_chain=3)
+            host = store.sparse_free(host, head, max_chain=3)
+        else:
+            nnz = int(rng.integers(0, 13))
+            idx = np.full(12, -1, np.int32)
+            idx[:nnz] = rng.choice(40, nnz, replace=False)
+            val = np.where(idx >= 0, rng.normal(size=12), 0).astype(np.float32)
+            idx, val = _t(idx, val)
+            card, ch, cok = store.sparse_write(card, idx.cuda(), val.cuda())
+            host, hh, hok = store.sparse_write(host, idx, val)
+            assert int(ch) == int(hh) and bool(cok) == bool(hok)
+            if bool(hok):
+                live.append(int(hh))
+                ci, cv = store.sparse_read(card, ch, 12)
+                assert torch.equal(ci.cpu(), idx) and torch.equal(cv.cpu(),
+                                                                  val)
+        for name, want in host._asdict().items():
+            assert torch.equal(getattr(card, name).cpu(), want), name

@@ -203,13 +203,13 @@ def test_cold_tier_config_raises():
     assert np.abs(dists[:, 0]).max() <= DIST_TOL
 
 
-def test_rank_tap_sees_the_answering_ranking():
-    """``index.RANK_TAP`` is off by default; set, it receives the inputs of
-    every ranking a query runs, and ranking the last of them through the
-    plain version gives the query's answer (staged rows included)."""
+def test_rank_tap_sees_the_answering_ranking(monkeypatch):
+    """A query answers with the ranking of the candidates
+    ``index._rank_candidates`` is handed (the function a measurement
+    taps for the kernel's inputs): ranking the last of them through the
+    plain version gives the query's answer, staged rows included."""
     from repro_torch.core import index as tindex
     from repro_torch.kernels import ref
-    assert tindex.RANK_TAP is None
     cfg = PFOConfig(**small_pfo_config(
         max_leaves_per_tree=64, max_snapshots=3, cold_segments=4,
         cold_cache_slots=12).__dict__)
@@ -219,17 +219,22 @@ def test_rank_tap_sees_the_answering_ranking():
     vecs /= np.linalg.norm(vecs, axis=1, keepdims=True)
     for s in range(0, 1500, 300):
         idx.insert(np.arange(s, s + 300, dtype=np.int32), vecs[s:s + 300])
-    seen = []
-    tindex.RANK_TAP = lambda **kw: seen.append(kw)
-    try:
-        ids, dists = idx.query(vecs[:16], 5)
-    finally:
-        tindex.RANK_TAP = None
+    seen, real = [], tindex._rank_candidates
+
+    def tap(state, qvecs, cids, slot, found, cfg, k, staging=None):
+        seen.append(dict(store=state.store.data.clone(), qvecs=qvecs,
+                         cids=cids, slot=slot, found=found, staging=staging))
+        return real(state, qvecs, cids, slot, found, cfg, k, staging=staging)
+
+    monkeypatch.setattr(tindex, "_rank_candidates", tap)
+    ids, dists = idx.query(vecs[:16], 5)
     assert seen
     r = seen[-1]
     assert r["staging"] is not None
-    assert (r["valid"] & (r["slots"] >= cfg.store_capacity)).any()
-    d = ref.ref_gather_rank(r["qvecs"], r["store"], r["slots"], r["valid"],
+    valid = (r["cids"] >= 0) & r["found"] & (r["slot"] >= 0)
+    slots = torch.where(valid, r["slot"], 0)
+    assert (valid & (slots >= cfg.store_capacity)).any()
+    d = ref.ref_gather_rank(r["qvecs"], r["store"], slots, valid,
                             cfg.metric, staging=r["staging"])
     neg, at = torch.topk(-d, 5, dim=1)
     want = torch.where(torch.isfinite(neg), r["cids"].gather(1, at), -1)

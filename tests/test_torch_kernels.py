@@ -1,12 +1,13 @@
-"""The port's kernels (lsh_hash, gather_rank) against the JAX package.
+"""The port's kernels against the JAX package.
 
 On the CPU each wrapper takes its plain version, so these tests hold the
 plain versions against the JAX package's kernels (run in interpret mode
 on the CPU, as its own tests run them) on the shape sweeps of
-``tests/test_kernels.py`` plus d = 100.  ``lsh_hash`` must be exact: the
-inputs keep every projection at least 1e-4 from zero (in float64), so a
-different float summation order cannot flip a sign.  ``gather_rank``
-uses the reference's own tolerance, 2e-5.
+``tests/test_kernels.py`` plus d = 100.  ``lsh_hash`` and ``hamming``
+must be exact (``lsh_hash``'s inputs keep every projection at least 1e-4
+from zero in float64, so a different float summation order cannot flip
+a sign); ``gather_rank`` and ``rank_dots`` use the reference's own
+tolerance, 2e-5, and ``pair_dist`` its 1e-4.
 
 The CUDA kernels themselves run only on the card: ``test_torch_cuda.py``
 holds them against the plain versions there and skips elsewhere.
@@ -16,9 +17,13 @@ import pytest
 import torch
 
 import jax.numpy as jnp
+from conftest import unit_vec
 from repro.kernels import ops as jops
-from test_torch_cuda import (HASH_SHAPES, RANK_SHAPES, TOL, _t, hash_inputs,
-                             rank_inputs)
+from repro.kernels import ref as jref
+from test_torch_cuda import (DOTS_SHAPES, DOTS_TOL, HAMMING_SHAPES,
+                             HASH_SHAPES, PAIR_SHAPES, PAIR_TOL, RANK_SHAPES,
+                             TOL, _t, dots_inputs, hash_inputs, key_inputs,
+                             pair_inputs, rank_inputs)
 from repro_torch.kernels import _build, ops, ref
 
 torch.set_num_threads(1)
@@ -103,6 +108,76 @@ def test_staging_arena_matches_jax_ref(metric):
     np.testing.assert_allclose(got, kern, rtol=TOL, atol=TOL)
 
 
+@pytest.mark.parametrize("q,c,d", DOTS_SHAPES)
+def test_rank_dots_matches_jax(q, c, d):
+    """The plain version against the JAX package's ref and its kernel."""
+    qq, x = dots_inputs(q, c, d, seed=q + 3 * c + d)
+    got = ops.rank_dots(*_t(qq, x)).numpy()
+    np.testing.assert_allclose(got, np.asarray(jref.ref_rank_dots(qq, x)),
+                               rtol=DOTS_TOL, atol=DOTS_TOL)
+    np.testing.assert_allclose(got, np.asarray(jops.rank_dots(
+        jnp.asarray(qq), jnp.asarray(x))), rtol=DOTS_TOL, atol=DOTS_TOL)
+
+
+@pytest.mark.parametrize("q,n,d", PAIR_SHAPES)
+def test_pair_dist_matches_jax(q, n, d):
+    qq, x = pair_inputs(q, n, d, seed=q + 5 * n + d)
+    got = ops.pair_dist_sq(*_t(qq, x)).numpy()
+    assert got.shape == (q, n) and (got >= 0).all()
+    np.testing.assert_allclose(got, np.asarray(jref.ref_pair_dist(qq, x)),
+                               rtol=PAIR_TOL, atol=PAIR_TOL)
+    np.testing.assert_allclose(got, np.asarray(jops.pair_dist_sq(
+        jnp.asarray(qq), jnp.asarray(x))), rtol=PAIR_TOL, atol=PAIR_TOL)
+
+
+@pytest.mark.parametrize("q,n,w", HAMMING_SHAPES)
+def test_hamming_matches_jax_exactly(q, n, w):
+    """Keys as the port carries them (int64 in [0, 2^32)), against the
+    JAX package's uint32 ref and kernel, bit for bit."""
+    a, b = key_inputs(q, n, w, seed=q + 7 * n + w)
+    got = ops.hamming(*_t(a, b))
+    assert got.dtype == torch.int32
+    ja, jb = jnp.asarray(a.astype(np.uint32)), jnp.asarray(b.astype(np.uint32))
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(jref.ref_hamming(ja, jb)))
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(jops.hamming(ja, jb)))
+    same = ops.hamming(*_t(a, a)).numpy()
+    assert (np.diag(same) == 0).all()
+
+
+@pytest.mark.parametrize("metric", ["angular", "l2"])
+def test_pairwise_rank_matches_jax(metric):
+    qq, x = dots_inputs(9, 130, 65, seed=17)
+    valid = np.random.default_rng(18).random((9, 130)) < 0.7
+    want = np.asarray(jops.pairwise_rank(jnp.asarray(qq), jnp.asarray(x),
+                                         jnp.asarray(valid), metric))
+    got = ops.pairwise_rank(*_t(qq, x, valid), metric).numpy()
+    np.testing.assert_array_equal(np.isinf(got), ~valid)
+    np.testing.assert_allclose(got, want, rtol=DOTS_TOL, atol=DOTS_TOL)
+
+
+@pytest.mark.parametrize("metric", ["angular", "l2"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_brute_force_topk_matches_jax(metric, masked):
+    """Unit vectors (``conftest.unit_vec``): no exact ties, so ids are
+    equal, not just distances."""
+    x = np.stack([unit_vec(i, 0, 32) for i in range(300)])
+    qq = np.stack([unit_vec(i, 1, 32) for i in range(40)])
+    if metric == "l2":
+        x = x * np.linspace(0.5, 2.0, 300, dtype=np.float32)[:, None]
+    valid = (np.arange(300) % 3 != 0) if masked else None
+    jv = None if valid is None else jnp.asarray(valid)
+    jidx, jd = jops.brute_force_topk(jnp.asarray(qq), jnp.asarray(x), 10,
+                                     metric, valid=jv)
+    idx, d = ops.brute_force_topk(*_t(qq, x), 10, metric,
+                                  valid=None if valid is None else
+                                  torch.from_numpy(valid))
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+    np.testing.assert_allclose(d.numpy(), np.asarray(jd), rtol=PAIR_TOL,
+                               atol=PAIR_TOL)
+
+
 def test_cpu_tensors_take_the_plain_version():
     ops.reset_launches()
     x, a = hash_inputs(9, 16, 2, seed=5)
@@ -113,8 +188,15 @@ def test_cpu_tensors_take_the_plain_version():
                        ref.ref_gather_rank(*args, "l2"))
     assert torch.equal(ops.gather_rank(*args, "l2", staging=args[1]),
                        ref.ref_gather_rank(*args, "l2", staging=args[1]))
+    qq, x = _t(*pair_inputs(3, 5, 16, seed=7))
+    assert torch.equal(ops.pair_dist_sq(qq, x), ref.ref_pair_dist(qq, x))
+    qq, block = _t(*dots_inputs(3, 5, 16, seed=8))
+    assert torch.equal(ops.rank_dots(qq, block), ref.ref_rank_dots(qq, block))
+    a, b = _t(*key_inputs(3, 5, 2, seed=9))
+    assert torch.equal(ops.hamming(a, b), ref.ref_hamming(a, b))
     assert ops.LAUNCHES == {"lsh_hash": 0, "gather_rank": 0,
-                            "gather_rank_staged": 0}
+                            "gather_rank_staged": 0, "pair_dist": 0,
+                            "rank_dots": 0, "hamming": 0}
 
 
 def test_non_cpu_tensor_never_takes_the_plain_version():
@@ -128,6 +210,13 @@ def test_non_cpu_tensor_never_takes_the_plain_version():
     v = torch.empty((4, 3), dtype=torch.bool, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         ops.gather_rank(x, a.t(), s, v, "l2")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.pair_dist_sq(x, a.t())
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.rank_dots(x, torch.empty((4, 3, 8), device="meta"))
+    keys = torch.empty((4, 2), dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.hamming(keys, keys)
 
 
 def test_build_names_library_by_source_hash(tmp_path, monkeypatch):
