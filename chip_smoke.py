@@ -34,7 +34,14 @@ Phases (any failure exits non-zero; there is no CPU fallback):
 7. each kernel against its plain version on the card, at the shapes its
    path gave it, with its time, the plain version's time, one PyTorch
    library call's time and the least time the card could take (the
-   bound);
+   bound): the larger of the bytes the call must move over the memory
+   rate and its operations over the fastest fp32-accurate rate the card
+   has, FFMA (67 TFLOP/s) or 3xTF32 on the dense TF32 tensor cores (3 x
+   the operations at 495 TFLOP/s), whichever route the kernel took, so
+   one rule reads every row.  ``lsh_hash`` and ``pair_dist`` also give
+   their kernels' device time as ``torch.profiler`` records it
+   (``kernel_ms``), a second witness beside the events; ``pair_dist``
+   is held and timed at both of its launches (hot and cold oracles);
 8. the card's name and power limit, then the last line:
    ``{"ok": true, "device": {...}}``.
 
@@ -66,13 +73,17 @@ from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.gather_rank import (  # noqa: E402
     gather_rank_cuda, gather_rank_staged_cuda)
 from repro_torch.kernels.hamming import _as_u32_bits  # noqa: E402
+from repro_torch.kernels.lsh_hash import lsh_hash_cuda  # noqa: E402
 from repro_torch.kernels.pair_dist import pair_dist_cuda  # noqa: E402
 from repro_torch.kernels.rank_candidates import rank_dots_cuda  # noqa: E402
 
-# published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bytes/s and
-# fp32 FLOP/s outside the tensor cores
+# published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bytes/s, fp32
+# FLOP/s outside the tensor cores and dense TF32 FLOP/s on them.  A bound
+# counts operations at the faster fp32-accurate route: FFMA, or 3xTF32
+# (three TF32 products per fp32 one) on the tensor cores.
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
+PEAK_TF32 = 495e12
 MARGIN = 1e-4            # |projection| below this may flip a hash bit
 DIST_TOL = 1e-5          # distances, card vs CPU trace
 RANK_TOL = 2e-5          # gather_rank, rank_dots vs plain (the reference)
@@ -88,6 +99,7 @@ FIG7_ITEMS = 3000        # paper_figs.fig7's larger n
 FIG7_CHECK = 300         # the prefix whose forest is held CPU vs card
 HAMMING_KEYS = 1 << 18   # stored keys the hamming row ranks against
 DEVICE = "cuda"
+SPIN_CYCLES = 100_000    # ~50 us of device spin before each timed call
 
 
 def emit(**kw):
@@ -120,25 +132,80 @@ def clustered(n: int, dim: int, seed: int, device) -> torch.Tensor:
 _L2_FLUSH = None
 
 
+def l2_flush() -> torch.Tensor:
+    """A 64 MB buffer whose ``zero_()`` evicts the card's 50 MB L2."""
+    global _L2_FLUSH
+    if _L2_FLUSH is None:
+        _L2_FLUSH = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
+    return _L2_FLUSH
+
+
 def cuda_ms(fn, iters: int = 20) -> float:
     """Mean device time of one ``fn()`` in ms, from CUDA events around each
     launch, with the 50 MB L2 cache flushed before each: the main path
     finds its inputs cold (a query's store rows were last touched rounds
-    ago), so a warm L2 would flatter every contender."""
-    global _L2_FLUSH
-    if _L2_FLUSH is None:
-        _L2_FLUSH = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
+    ago), so a warm L2 would flatter every contender.  A device spin
+    after the flush keeps the card busy while the host enqueues the
+    events and the call, so the interval holds the call's device time and
+    not the host's Python time (a wrapper's ~20 us of Python would
+    otherwise show in a 10 us kernel's time)."""
+    flush = l2_flush()
     for _ in range(3):
         fn()
     ev = [(torch.cuda.Event(enable_timing=True),
            torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
     for e0, e1 in ev:
-        _L2_FLUSH.zero_()
+        flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         e0.record()
         fn()
         e1.record()
     torch.cuda.synchronize()
     return sum(e0.elapsed_time(e1) for e0, e1 in ev) / iters
+
+
+def kernel_ms(fn, iters: int = 20):
+    """Mean device time, in ms, of the kernels one ``fn()`` launches, as
+    ``torch.profiler`` records them, with the L2 flushed before each call
+    as in :func:`cuda_ms` (the flush's own fill is left out).  A witness
+    beside cuda_ms that owes nothing to its events or its spin: it sums
+    the kernels' own durations, so neither host time nor the gaps
+    between a call's launches enter it.  None where the profiler did not
+    hand back every call's kernels (on the H100 it returns few or no
+    device events once the cold path has run)."""
+    from torch.profiler import ProfilerActivity, profile
+    flush = l2_flush()
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    flushes = kernels = ns = 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        if "FillFunctor<unsigned char>" in e.name():
+            flushes += 1
+        else:
+            kernels += 1
+            ns += e.duration_ns()
+    if flushes != iters or kernels == 0 or kernels % iters:
+        return None
+    return ns / iters / 1e6
+
+
+def paired_ms(kernel, library, iters: int = 20):
+    """A kernel and its library call timed in turns (kernel, library,
+    library, kernel), each the mean of its two turns, after one untimed
+    turn of each, so a card whose clock is still rising, or a busier
+    neighbour, weighs on both alike."""
+    cuda_ms(kernel, iters), cuda_ms(library, iters)
+    k1, l1 = cuda_ms(kernel, iters), cuda_ms(library, iters)
+    l2, k2 = cuda_ms(library, iters), cuda_ms(kernel, iters)
+    return (k1 + k2) / 2, (l1 + l2) / 2
 
 
 def device_profile(fn) -> dict:
@@ -212,7 +279,10 @@ def tap_ranking(fn):
 
 
 def bound_ms(n_bytes: float, flops: float):
-    tb, tf = n_bytes / PEAK_BYTES * 1e3, flops / PEAK_FP32 * 1e3
+    """The least time for a call: the larger of its bytes over the memory
+    rate and its fp32 operations over the faster fp32-accurate route."""
+    tb = n_bytes / PEAK_BYTES * 1e3
+    tf = min(flops / PEAK_FP32, 3 * flops / PEAK_TF32) * 1e3
     return max(tb, tf), ("bytes" if tb >= tf else "operations")
 
 
@@ -894,8 +964,8 @@ def phase_cold_main(args):
     in_cand = (cids == self_ids[:, None]).any(1)
 
     # recall@10 against the exact oracle over the items live at query time
-    (truth, _), oracle_launches, _, _ = exact_oracle(cfg, ids[live_rows],
-                                                     vecs[live_rows], q)
+    (truth, _), oracle_launches, oracle_in, _ = exact_oracle(
+        cfg, ids[live_rows], vecs[live_rows], q)
     recall = recall_at(got_ids, truth)
     staged = q_stats["staged_ranked"]
     emit(phase="cold_path", items=n, live_items=n_live, dim=cfg.dim,
@@ -933,22 +1003,18 @@ def phase_cold_main(args):
     idx.cold._discard_worker()           # no fold may read the files now
     del idx
     tmp.cleanup()
-    return ranked, launches, oracle_launches["pair_dist"]
+    return ranked, launches, oracle_launches["pair_dist"], oracle_in
 
 
 # ----------------------------------------------------------------------
 # phase 7: each kernel against its plain version, timed, with its bound
 # ----------------------------------------------------------------------
-def phase_kernels(idx, ranked, launches):
-    cfg, st = idx.cfg, idx.state
-    rows = []
-
-    # lsh_hash at the insert batch's shape: (4096, d) x (d, L*32)
-    x = clustered(4096, cfg.dim, 12345, st.store.data.device)
-    a = st.proj["table_proj"].contiguous()
-    n, d = x.shape
-    p = a.shape[1]
-    words = p // 32
+def hash_flips(x, a):
+    """lsh_hash's bits on the card against its plain version and against
+    the float64 projection's signs: (bits that differ where the
+    projection lies >= MARGIN from zero, bits that differ from the plain
+    version nearer zero)."""
+    n, words = x.shape[0], a.shape[1] // 32
     got = ops.lsh_hash(x, a)
     plain = ref.ref_lsh_hash(x, a)
     proj64 = x.double() @ a.double()
@@ -957,24 +1023,49 @@ def phase_kernels(idx, ranked, launches):
     diff = (((got ^ plain)[..., None] >> shifts) & 1).bool()
     truth = ((((proj64 >= 0).reshape(n, words, 32).long()
                << shifts).sum(-1) ^ got)[..., None] >> shifts) & 1
-    far_flips = int((diff & ~near).sum()) + int((truth.bool() & ~near).sum())
-    near_flips = int((diff & near).sum())
-    check(far_flips == 0, f"lsh_hash: {far_flips} bit flips away from zero")
-    out = torch.empty((n, words), dtype=torch.int32, device=x.device)
-    fn = _build.load("lsh_hash")
-    stream = torch.cuda.current_stream().cuda_stream
-    ms = cuda_ms(lambda: fn(x.data_ptr(), a.data_ptr(), out.data_ptr(), n, d,
-                            words, stream))
-    b_ms, b_by = bound_ms(4 * (n * d + d * p + n * words), 2 * n * d * p)
+    far = int((diff & ~near).sum()) + int((truth.bool() & ~near).sum())
+    return far, int((diff & near).sum())
+
+
+def phase_kernels(idx, ranked, launches):
+    cfg, st = idx.cfg, idx.state
+    rows = []
+
+    # lsh_hash at the insert batch's shape, (4096, d) x (d, L*32), and at
+    # the query batch's, (1024, d) x (d, L*32), through lsh_hash_cuda
+    a = st.proj["table_proj"].contiguous()
+    shapes = []
+    for n, seed in ((4096, 12345), (1024, 12346)):
+        x = clustered(n, cfg.dim, seed, st.store.data.device)
+        far, near = hash_flips(x, a)
+        check(far == 0, f"lsh_hash: {far} bit flips away from zero at "
+              f"{n} rows")
+        d, p = a.shape
+        b_ms, b_by = bound_ms(4 * d * p + 4 * n * d + 8 * n * (p // 32),
+                              2 * n * d * p)
+        plain = cuda_ms(lambda: ref.ref_lsh_hash(x, a))
+        ms, lib_ms = paired_ms(lambda: lsh_hash_cuda(x, a),
+                               lambda: torch.matmul(x, a))
+        shapes.append(dict(
+            shape=[n, d, p], far_flips=far, near_zero_flips=near, ms=ms,
+            kernel_ms=kernel_ms(lambda: lsh_hash_cuda(x, a)),
+            plain_ms=plain, library_ms=lib_ms,
+            library_kernel_ms=kernel_ms(lambda: torch.matmul(x, a)),
+            bound_ms=b_ms, bound_by=b_by))
+    insert, query = shapes
     rows.append(dict(
-        name="lsh_hash", route="cuda",
+        name="lsh_hash", route="cuda", design="3xtf32-mma",
         source="src/repro_torch/kernels/csrc/lsh_hash.cu",
         replaces="src/repro/kernels/lsh_hash.py:64",
-        launches=launches["lsh_hash"], max_abs_err=far_flips,
-        near_zero_flips=near_flips, shape=[n, d, p],
-        ms=ms, plain_ms=cuda_ms(lambda: ref.ref_lsh_hash(x, a)),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=cuda_ms(lambda: torch.matmul(x, a))))
+        launches=launches["lsh_hash"], max_abs_err=insert["far_flips"],
+        near_zero_flips=insert["near_zero_flips"], shape=insert["shape"],
+        ms=insert["ms"], kernel_ms=insert["kernel_ms"],
+        timed="through lsh_hash_cuda, in turns with torch.matmul; "
+              "kernel_ms: torch.profiler's kernel time",
+        plain_ms=insert["plain_ms"], bound_ms=insert["bound_ms"],
+        bound_by=insert["bound_by"], library_ms=insert["library_ms"],
+        library_kernel_ms=insert["library_kernel_ms"],
+        library_call="torch.matmul(x, a)", query_batch=query))
 
     # gather_rank on the hot query's own ranking inputs
     q, store, valid = ranked["qvecs"], ranked["store"], ranked["valid"]
@@ -1007,12 +1098,12 @@ def phase_kernels(idx, ranked, launches):
     return rows
 
 
-def pair_dist_row(xin, launches: dict) -> dict:
-    """pair_dist on the hot oracle's own inputs: 1024 unit queries against
-    the 500,000 unit items.  ``launches`` counts it by path.  The kernel,
-    its plain version and the library call are each timed from the
-    vectors alone: the kernel through ``pair_dist_cuda``, the wrapper the
-    path runs, which computes the norms before its launch."""
+def pair_dist_at(xin) -> dict:
+    """pair_dist on one oracle's own (unit) inputs, held against its plain
+    version, with its times and bound.  The kernel, its plain version and
+    the library call are each timed from the vectors alone: the kernel
+    through ``pair_dist_cuda``, the wrapper the path runs, whose one
+    launch sums the norms too."""
     qn, xn = xin
     got = pair_dist_cuda(qn, xn)
     plain = ref.ref_pair_dist(qn, xn)
@@ -1021,19 +1112,33 @@ def pair_dist_row(xin, launches: dict) -> dict:
     del got, plain
     nq, d = qn.shape
     n = xn.shape[0]
-    ms = cuda_ms(lambda: pair_dist_cuda(qn, xn))
     b_ms, b_by = bound_ms(4 * (nq * d + n * d + nq * n),
                           2 * nq * n * d + 3 * nq * n + 2 * (nq + n) * d)
     return dict(
-        name="pair_dist", route="cuda",
+        max_abs_err=err, shape=[nq, n, d],
+        ms=cuda_ms(lambda: pair_dist_cuda(qn, xn)),
+        kernel_ms=kernel_ms(lambda: pair_dist_cuda(qn, xn), iters=5),
+        plain_ms=cuda_ms(lambda: ref.ref_pair_dist(qn, xn), iters=5),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_ms(lambda: torch.cdist(qn, xn).square(), iters=5))
+
+
+def pair_dist_row(hot: dict, cold: dict, launches: dict) -> dict:
+    """pair_dist at both of its launches on the path, from
+    :func:`pair_dist_at`: the hot oracle's 1024 queries against 500,000
+    items (the row's own numbers, measured before the cold path runs) and
+    the cold oracle's against the cold path's live items, N % 4 != 0
+    (``cold_oracle``).  ``launches`` counts it by path."""
+    return dict(
+        name="pair_dist", route="cuda", design="3xtf32-mma",
         source="src/repro_torch/kernels/csrc/pair_dist.cu",
         replaces="src/repro/kernels/pair_dist.py:56",
         launches=sum(launches.values()), launches_by_path=launches,
-        max_abs_err=err, shape=[nq, n, d], ms=ms, timed="norms included",
-        plain_ms=cuda_ms(lambda: ref.ref_pair_dist(qn, xn), iters=5),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=cuda_ms(lambda: torch.cdist(qn, xn).square(), iters=5),
-        library_call="torch.cdist(q, x).square()")
+        **hot,
+        timed="through pair_dist_cuda, norms included; kernel_ms: "
+              "torch.profiler's kernel time",
+        library_call="torch.cdist(q, x).square()",
+        cold_oracle=cold)
 
 
 def rank_dots_row(xin, launches: dict) -> dict:
@@ -1174,26 +1279,31 @@ def main() -> int:
     t0 = time.perf_counter()
     build_s = _build.build()
     emit(phase="build", torch=torch.__version__, cuda=torch.version.cuda,
-         card=card, nvcc_s=build_s, build_s=time.perf_counter() - t0)
+         card=card, nvcc_s=build_s, build_s=time.perf_counter() - t0,
+         ptxas=_build.ptxas_report())
     phase_trace(args.seed)
     phase_cold_trace(args.seed)
     idx, ranked, launches, hot = phase_main(args)
     rows = phase_kernels(idx, ranked, launches)
     del idx, ranked
     torch.cuda.empty_cache()
+    hot_pair = pair_dist_at(hot["oracle_in"])
     feeds = phase_baselines(args, hot)
     pair_launches = dict(hot_oracle=hot["oracle_launches"])
     rows.append(rank_dots_row(feeds["dots_in"], dict(
         zorder=feeds["zorder"], multiprobe=feeds["multiprobe"])))
     rows.append(hamming_row(feeds["keys"]))
-    oracle_in = hot["oracle_in"]
     del hot, feeds
     torch.cuda.empty_cache()
-    ranked, cold_launches, pair_launches["cold_oracle"] = phase_cold_main(args)
+    ranked, cold_launches, pair_launches["cold_oracle"], cold_in = \
+        phase_cold_main(args)
     rows.insert(2, staged_row(ranked, cold_launches, cold_config().metric))
     del ranked
     torch.cuda.empty_cache()
-    rows.insert(3, pair_dist_row(oracle_in, pair_launches))
+    rows.insert(3, pair_dist_row(hot_pair, pair_dist_at(cold_in),
+                                 pair_launches))
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "float32 products ran in TF32 during the run")
     emit(kernels=rows)
     print(card, flush=True)
     emit(ok=True, device={"platform": "gpu",

@@ -6,11 +6,14 @@ into its own shared library under ``build/repro_torch/`` at the root of
 the checkout::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/repro_torch/<source>-<hash>.so \
-         csrc/<source>.cu
+         -Xcompiler -fPIC -Xptxas -v \
+         -o build/repro_torch/<source>-<hash>.so csrc/<source>.cu
 
-The library's name carries a content hash of its source, so an edited
-kernel is rebuilt and a stale library is never loaded.  Libraries are
+The library's name carries a content hash of its source and of every
+shared header ``csrc/*.cuh``, so an edited kernel or header is rebuilt
+and a stale library is never loaded.  The compiler's report (``-Xptxas
+-v``: registers, shared memory and spills of each kernel) is kept beside
+the library and read back by :func:`ptxas_report`.  Libraries are
 loaded with ``ctypes``; every entry point takes its pointers and the
 CUDA stream as ``c_void_p`` and returns ``cudaGetLastError()``.
 
@@ -22,6 +25,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -30,7 +34,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
+NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
 #: each kernel's entry point: name -> (source file stem, symbol, argtypes)
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -45,9 +50,9 @@ ENTRY_POINTS = {
     "gather_rank_staged": ("gather_rank", "gather_rank_staged_launch",
                            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _P]),
-    # q, x, qs, xs, out, nq, n, d, stream
+    # q, x, out, nq, n, ld (out's row pitch), d, stream
     "pair_dist": ("pair_dist", "pair_dist_launch",
-                  [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
+                  [_P, _P, _P, _I, _I, _I, _I, _P]),
     # q, x, out, nq, c, d, stream
     "rank_dots": ("rank_dots", "rank_dots_launch",
                   [_P, _P, _P, _I, _I, _I, _P]),
@@ -73,10 +78,15 @@ def _nvcc() -> str:
 
 
 def _lib_path(source: str) -> Path:
-    src = (CSRC / f"{source}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(ARCH_FLAGS + NVCC_FLAGS)
-                            .encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{source}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{source}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{source}-{h.hexdigest()[:16]}.so"
+
+
+def _report_path(lib: Path) -> Path:
+    return lib.with_suffix(".ptxas.txt")
 
 
 def build(names=None) -> dict[str, float]:
@@ -108,10 +118,54 @@ def build(names=None) -> dict[str, float]:
                           f"{log.decode(errors='replace')}")
             tmp.unlink(missing_ok=True)
         else:
+            _report_path(out).write_bytes(log)
             os.replace(tmp, out)        # atomic: never load a partial .so
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return secs
+
+
+def ptxas_report(names=None) -> list[dict]:
+    """Registers, shared memory and spill bytes of every kernel in the
+    built sources of the named kernels (default: all), from the
+    ``-Xptxas -v`` report kept beside each library; a source built
+    before the report was kept gives no entries.  Kernel names are
+    demangled by ``c++filt`` where it is on the PATH."""
+    names = list(ENTRY_POINTS if names is None else names)
+    rows = []
+    for source in dict.fromkeys(ENTRY_POINTS[n][0] for n in names):
+        path = _report_path(_lib_path(source))
+        if path.exists():
+            rows += parse_ptxas(path.read_text(errors="replace"), source)
+    filt = shutil.which("c++filt")
+    if filt and rows:
+        out = subprocess.run([filt], capture_output=True, text=True,
+                             input="\n".join(r["kernel"] for r in rows),
+                             timeout=60)
+        plain = out.stdout.splitlines()
+        if out.returncode == 0 and len(plain) == len(rows):
+            for r, name in zip(rows, plain):
+                r["kernel"] = name
+    return rows
+
+
+def parse_ptxas(log: str, source: str) -> list[dict]:
+    """One dict per kernel (entry function, by its mangled name) in an
+    ``-Xptxas -v`` log."""
+    rows = []
+    for block in log.split("Compiling entry function")[1:]:
+        mangled = block.split("'")[1] if "'" in block else block.split()[0]
+        regs = re.search(r"Used (\d+) registers", block)
+        smem = re.search(r"(\d+) bytes smem", block)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", block)
+        rows.append(dict(
+            source=source, kernel=mangled,
+            registers=int(regs.group(1)) if regs else None,
+            static_smem_bytes=int(smem.group(1)) if smem else 0,
+            spill_store_bytes=int(spill.group(1)) if spill else None,
+            spill_load_bytes=int(spill.group(2)) if spill else None))
+    return rows
 
 
 def load(name: str):

@@ -2,10 +2,11 @@
 
 Replaces the JAX package's Pallas TPU kernel ``lsh_hash_pallas``
 (``src/repro/kernels/lsh_hash.py``): packed sign-random-projection
-keys, with the sign and the bit-pack fused so the (N, P) projection
-never reaches device memory.  The plain version is
-:func:`repro_torch.kernels.ref.ref_lsh_hash`; callers go through
-:func:`repro_torch.kernels.ops.lsh_hash`.
+keys from a 3xTF32 tensor-core product (fp32-accurate), with the sign,
+the bit-pack and the int64 widening fused into its epilogue, so the
+(N, P) projection never reaches device memory and a call is one launch.
+The plain version is :func:`repro_torch.kernels.ref.ref_lsh_hash`;
+callers go through :func:`repro_torch.kernels.ops.lsh_hash`.
 """
 from __future__ import annotations
 
@@ -28,11 +29,11 @@ def lsh_hash_cuda(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     if d != d2 or p % 32:
         raise ValueError(f"bad shapes x{tuple(x.shape)} a{tuple(a.shape)}")
     words = p // 32
-    out = torch.empty((n, words), dtype=torch.int32, device=x.device)
+    out = torch.empty((n, words), dtype=torch.int64, device=x.device)
     if n:
         fn = _build.load("lsh_hash")
         stream = torch.cuda.current_stream(x.device).cuda_stream
         _build.check(fn(x.data_ptr(), a.data_ptr(), out.data_ptr(), n, d,
                         words, stream), "lsh_hash")
         _build.LAUNCHES["lsh_hash"] += 1
-    return out.to(torch.int64) & 0xFFFFFFFF
+    return out

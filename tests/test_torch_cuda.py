@@ -18,8 +18,15 @@ torch.set_num_threads(1)
 
 MARGIN = 1e-4
 TOL = 2e-5
+#: (n, d, tables): ragged N and d, the path's insert and query batches
+#: (4096 and 1024 rows of d = 100, L = 10: the kernel's 5- and 2-word
+#: tiles), N off the 64-row tile with 7 words (a multiple of neither
+#: tile's words), d = 4k + 1 (rows not 16-byte aligned) and d = 1000 (K
+#: past one chunk)
 HASH_SHAPES = [(1, 8, 1), (7, 33, 2), (37, 100, 3), (128, 64, 4),
-               (130, 257, 2), (300, 100, 10)]
+               (130, 257, 2), (300, 100, 10), (4096, 100, 10),
+               (1024, 100, 10), (1000, 100, 7), (300, 101, 5),
+               (45, 1000, 3)]
 RANK_SHAPES = [(1, 1, 1, 8), (3, 7, 13, 5), (8, 128, 100, 64),
                (5, 130, 41, 17), (16, 96, 500, 100)]
 #: (q, c, n store rows, m staging rows, d): ragged d, N and M
@@ -33,7 +40,8 @@ PAIR_TOL = 1e-4
 DOTS_SHAPES = [(1, 1, 8), (5, 33, 48), (8, 128, 128), (9, 130, 65),
                (1, 1, 1), (3, 65, 100)]
 PAIR_SHAPES = [(1, 1, 8), (5, 57, 48), (128, 128, 256), (33, 200, 100),
-               (1, 1, 1), (129, 131, 9), (130, 300, 100)]
+               (1, 1, 1), (129, 131, 9), (130, 300, 100), (1024, 4099, 100),
+               (1, 1, 4), (200, 300, 1000)]
 HAMMING_SHAPES = [(1, 1, 1), (9, 13, 4), (130, 70, 10), (33, 257, 10),
                   (2, 300, 41)]
 
@@ -209,6 +217,61 @@ def test_pair_dist_kernel_matches_plain_on_card(q, n, d):
     got = ops.pair_dist_sq(qq.cuda(), x.cuda()).cpu()
     torch.testing.assert_close(got, ref.ref_pair_dist(qq, x), rtol=PAIR_TOL,
                                atol=PAIR_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,seed", [(1000, 21), (4096, 22)])
+def test_pair_dist_self_distances_on_card(n, seed):
+    """x holds q's rows exactly, among others (unit vectors, as the
+    oracle sees them): each query's distance to its own row is <= 1e-4,
+    and its top-10 ids are the plain version's but across near-ties."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, 100)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    rows = rng.choice(n, size=300, replace=False)
+    qq, xx = _t(x[rows], x)
+    got = ops.pair_dist_sq(qq.cuda(), xx.cuda()).cpu()
+    want = ref.ref_pair_dist(qq, xx)
+    torch.testing.assert_close(got, want, rtol=PAIR_TOL, atol=PAIR_TOL)
+    assert float(got[torch.arange(300), torch.from_numpy(rows)].max()) <= 1e-4
+    ids = torch.topk(-got, 10, dim=1).indices
+    plain_d, plain = torch.topk(-want, 11, dim=1)
+    near = (plain_d[:, 9] - plain_d[:, 10]).abs() <= 1e-5
+    same = torch.tensor([set(a.tolist()) == set(b.tolist())
+                         for a, b in zip(ids, plain[:, :10])])
+    assert bool((same | near).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,n", [("lsh_hash", 1024), ("lsh_hash", 4096),
+                                      ("pair_dist", 700)])
+def test_one_call_is_one_kernel_on_card(kernel, n):
+    """torch.profiler sees one CUDA kernel for one wrapper call: lsh_hash
+    writes its int64 keys itself (no conversion pass) and pair_dist sums
+    its norms itself (no norm passes)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.lsh_hash import lsh_hash_cuda
+    from repro_torch.kernels.pair_dist import pair_dist_cuda
+    if kernel == "lsh_hash":
+        args = tuple(t.cuda() for t in _t(*hash_inputs(n, 100, 10, seed=n)))
+        call = lsh_hash_cuda
+    else:
+        args = tuple(t.cuda() for t in _t(*pair_inputs(n, 900, 100, seed=n)))
+        call = pair_dist_cuda
+    call(*args)                                 # built and warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = call(*args)
+        torch.cuda.synchronize()
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 1 and kernel in names[0], names
+    assert out.dtype == (torch.int64 if kernel == "lsh_hash"
+                         else torch.float32)
 
 
 @pytest.mark.cuda

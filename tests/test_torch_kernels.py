@@ -230,3 +230,45 @@ def test_build_names_library_by_source_hash(tmp_path, monkeypatch):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.build(["lsh_hash"])
+
+
+def test_build_hash_covers_headers(tmp_path, monkeypatch):
+    """An edited shared header renames every library, so a stale build is
+    never loaded (edits a copy of csrc, not the real one)."""
+    import shutil
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = {name: _build._lib_path(name) for name in ("lsh_hash",
+                                                         "pair_dist")}
+    assert before["lsh_hash"] == _build._lib_path("lsh_hash")
+    header = csrc / "f32_product.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    for name, path in before.items():
+        assert _build._lib_path(name) != path
+        assert _build._lib_path(name).name.startswith(f"{name}-")
+
+
+def test_ptxas_report_parses_each_kernel():
+    log = (
+        "ptxas info    : 0 bytes gmem\n"
+        "ptxas info    : Compiling entry function "
+        "'_ZN37_INTERNAL_5ff38615_11_lsh_hash_cu_5ff3861515lsh_hash_kernel"
+        "ILi5EEEvPKfS2_' for 'sm_90a'\n"
+        "ptxas info    : Function properties for x\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 96 registers, used 1 barriers, 128 bytes smem,"
+        " 400 bytes cmem[0]\n"
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_116pair_dist_kernelEPKfS1_' for 'sm_90a'\n"
+        "ptxas info    : Function properties for y\n"
+        "    8 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads\n"
+        "ptxas info    : Used 127 registers, 400 bytes cmem[0]\n")
+    rows = _build.parse_ptxas(log, "src")
+    assert [r["kernel"] for r in rows] == [
+        "_ZN37_INTERNAL_5ff38615_11_lsh_hash_cu_5ff3861515lsh_hash_kernel"
+        "ILi5EEEvPKfS2_", "_ZN12_GLOBAL__N_116pair_dist_kernelEPKfS1_"]
+    assert [r["registers"] for r in rows] == [96, 127]
+    assert [r["static_smem_bytes"] for r in rows] == [128, 0]
+    assert [(r["spill_store_bytes"], r["spill_load_bytes"])
+            for r in rows] == [(0, 0), (4, 8)]
