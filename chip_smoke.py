@@ -38,11 +38,12 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    rate and its operations over the fastest fp32-accurate rate the card
    has, FFMA (67 TFLOP/s) or 3xTF32 on the dense TF32 tensor cores (3 x
    the operations at 495 TFLOP/s), whichever route the kernel took, so
-   one rule reads every row.  ``lsh_hash`` and ``pair_dist`` also give
-   their kernels' device time as ``torch.profiler`` records it
-   (``kernel_ms``), a second witness beside the events; ``pair_dist``
-   is held and timed at both of its launches (hot and cold oracles);
-8. the card's name and power limit, then the last line:
+   one rule reads every row.  Every row also gives its kernel's device
+   time as ``torch.profiler`` records it (``kernel_ms``), a second
+   witness beside the events; ``pair_dist`` is held and timed at both of
+   its launches (hot and cold oracles);
+8. the kernels line, the card's name and power limit, then the last
+   line:
    ``{"ok": true, "device": {...}}``.
 
 Everything worth keeping is printed as one JSON object per line.
@@ -100,6 +101,9 @@ FIG7_CHECK = 300         # the prefix whose forest is held CPU vs card
 HAMMING_KEYS = 1 << 18   # stored keys the hamming row ranks against
 DEVICE = "cuda"
 SPIN_CYCLES = 100_000    # ~50 us of device spin before each timed call
+LEAD_IN = 256            # spins that open each profiler session
+GATHER_DESIGN = "compacted-lane-groups"   # gather_rank.cu since PR 16
+L2_POOL_ROWS = 20_000    # gather_rank's L2-resident yardstick
 
 
 def emit(**kw):
@@ -130,14 +134,15 @@ def clustered(n: int, dim: int, seed: int, device) -> torch.Tensor:
 
 
 _L2_FLUSH = None
+FLUSH_KERNEL = "FillFunctor<unsigned char>"   # the name of l2_flush's kernel
 
 
-def l2_flush() -> torch.Tensor:
-    """A 64 MB buffer whose ``zero_()`` evicts the card's 50 MB L2."""
+def l2_flush() -> None:
+    """Evict the card's 50 MB L2 by writing (``zero_()``) a 64 MB buffer."""
     global _L2_FLUSH
     if _L2_FLUSH is None:
         _L2_FLUSH = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
-    return _L2_FLUSH
+    _L2_FLUSH.zero_()
 
 
 def cuda_ms(fn, iters: int = 20) -> float:
@@ -149,13 +154,12 @@ def cuda_ms(fn, iters: int = 20) -> float:
     events and the call, so the interval holds the call's device time and
     not the host's Python time (a wrapper's ~20 us of Python would
     otherwise show in a 10 us kernel's time)."""
-    flush = l2_flush()
     for _ in range(3):
         fn()
     ev = [(torch.cuda.Event(enable_timing=True),
            torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
     for e0, e1 in ev:
-        flush.zero_()
+        l2_flush()
         torch.cuda._sleep(SPIN_CYCLES)
         e0.record()
         fn()
@@ -164,37 +168,61 @@ def cuda_ms(fn, iters: int = 20) -> float:
     return sum(e0.elapsed_time(e1) for e0, e1 in ev) / iters
 
 
-def kernel_ms(fn, iters: int = 20):
+def kernel_ms(fn, iters: int = 20, tries: int = 3):
     """Mean device time, in ms, of the kernels one ``fn()`` launches, as
     ``torch.profiler`` records them, with the L2 flushed before each call
-    as in :func:`cuda_ms` (the flush's own fill is left out).  A witness
+    as in :func:`cuda_ms` (the flush's own kernel is left out).  A witness
     beside cuda_ms that owes nothing to its events or its spin: it sums
     the kernels' own durations, so neither host time nor the gaps
-    between a call's launches enter it.  None where the profiler did not
-    hand back every call's kernels (on the H100 it returns few or no
-    device events once the cold path has run)."""
+    between a call's launches enter it.  A session that comes back short
+    (now and then one comes back empty) is run again, up to ``tries``
+    sessions; None where none handed back every call's kernels."""
     from torch.profiler import ProfilerActivity, profile
-    flush = l2_flush()
+    l2_flush()
     for _ in range(3):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            flush.zero_()
-            fn()
+    for _ in range(tries):
         torch.cuda.synchronize()
-    flushes = kernels = ns = 0
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            lead_in()
+            for _ in range(iters):
+                l2_flush()
+                fn()
+            torch.cuda.synchronize()
+        flushes = kernels = ns = 0
+        for e in device_events(prof)[0]:
+            if FLUSH_KERNEL in e.name():
+                flushes += 1
+            else:
+                kernels += 1
+                ns += e.duration_ns()
+        if flushes == iters and kernels and kernels % iters == 0:
+            return ns / iters / 1e6
+    return None
+
+
+def lead_in() -> None:
+    """LEAD_IN one-cycle device spins to open a profiler session.  Once
+    one session has run, the profiler drops the first device events of
+    each later one, more as the run goes on (PERF.md section 7); these
+    absorb that loss, and their kernel (``spin_kernel``) is never one a
+    measured call launches."""
+    for _ in range(LEAD_IN):
+        torch.cuda._sleep(1)
+
+
+def device_events(prof):
+    """The device events of a profiler session, but the lead-in's, and
+    how many lead-in events the profiler dropped."""
+    events, spins = [], 0
     for e in prof.profiler.kineto_results.events():
         if e.device_type() != torch.autograd.DeviceType.CUDA:
             continue
-        if "FillFunctor<unsigned char>" in e.name():
-            flushes += 1
+        if "spin_kernel" in e.name():
+            spins += 1
         else:
-            kernels += 1
-            ns += e.duration_ns()
-    if flushes != iters or kernels == 0 or kernels % iters:
-        return None
-    return ns / iters / 1e6
+            events.append(e)
+    return events, LEAD_IN - spins
 
 
 def paired_ms(kernel, library, iters: int = 20):
@@ -215,25 +243,29 @@ def device_profile(fn) -> dict:
     five kernels with the most device time.  The raw device events are
     summed directly: the profiler's own event tree takes tens of seconds
     to build for a call of ~10^5 operators.  The device numbers are None
-    where the profiler saw no device activity."""
+    where the profiler saw no device activity; ``lead_in_lost`` says how
+    many of the session's first events it dropped (:func:`lead_in`)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        lead_in()
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+    events, lost = device_events(prof)
     per = {}                                   # name -> [count, ms]
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() == torch.autograd.DeviceType.CUDA:
-            acc = per.setdefault(e.name(), [0, 0.0])
-            acc[0] += 1
-            acc[1] += e.duration_ns() / 1e6
+    for e in events:
+        acc = per.setdefault(e.name(), [0, 0.0])
+        acc[0] += 1
+        acc[1] += e.duration_ns() / 1e6
     busy = sum(ms for _, ms in per.values())
     top = sorted(per.items(), key=lambda kv: -kv[1][1])[:5]
     return dict(wall_ms=wall, device_busy_ms=busy if per else None,
                 idle_share=1 - busy / wall if per else None,
+                lead_in_lost=lost,
                 kernels=[dict(name=name[:60], count=n, ms=ms)
                          for name, (n, ms) in top])
 
@@ -1082,16 +1114,26 @@ def phase_kernels(idx, ranked, launches):
     n_valid = int(valid.sum())
     n_rows = int(torch.unique(slots[valid]).numel())   # store rows needed
     ms = cuda_ms(lambda: gather_rank_cuda(qn, store, slots, valid, True))
+    k_ms = kernel_ms(lambda: gather_rank_cuda(qn, store, slots, valid, True))
     b_ms, b_by = bound_ms(4 * (nq * d + n_rows * d + 2 * nq * c) + nq * c,
                           4 * n_valid * d)
+    # a yardstick: the same reads folded into 20,000 rows (8 MB), so all
+    # but the first touch of each hit the L2 and every read still crosses
+    # from the L2 to the SMs
+    pool = slots.remainder(L2_POOL_ROWS)
+    pool_ms = cuda_ms(lambda: gather_rank_cuda(qn, store, pool, valid, True))
     block = store[slots.long()]                       # (Q, C, d) gathered
     rows.append(dict(
-        name="gather_rank", route="cuda",
+        name="gather_rank", route="cuda", design=GATHER_DESIGN,
         source="src/repro_torch/kernels/csrc/gather_rank.cu",
         replaces="src/repro/kernels/gather_rank.py:112",
         launches=launches["gather_rank"], max_abs_err=err,
         shape=[nq, c, d], valid_candidates=n_valid, distinct_rows=n_rows,
-        ms=ms, plain_ms=cuda_ms(lambda: ref.ref_gather_rank(
+        ms=ms, kernel_ms=k_ms, l2_pool_ms=pool_ms,
+        timed="through gather_rank_cuda; kernel_ms: torch.profiler's "
+              "kernel time; l2_pool_ms: slots folded into "
+              f"{L2_POOL_ROWS} rows",
+        plain_ms=cuda_ms(lambda: ref.ref_gather_rank(
             q, store, slots, valid, cfg.metric)),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=cuda_ms(lambda: torch.bmm(block, qn[:, :, None]))))
@@ -1152,15 +1194,19 @@ def rank_dots_row(xin, launches: dict) -> dict:
     out = torch.empty((nq, c), device=qn.device)
     fn = _build.load("rank_dots")
     stream = torch.cuda.current_stream().cuda_stream
-    ms = cuda_ms(lambda: fn(qn.data_ptr(), x.data_ptr(), out.data_ptr(), nq,
-                            c, d, stream))
+
+    def launch():
+        return fn(qn.data_ptr(), x.data_ptr(), out.data_ptr(), nq, c, d,
+                  stream)
+
+    ms, k_ms = cuda_ms(launch), kernel_ms(launch)
     b_ms, b_by = bound_ms(4 * (nq * d + nq * c * d + nq * c), 2 * nq * c * d)
     return dict(
         name="rank_dots", route="cuda",
         source="src/repro_torch/kernels/csrc/rank_dots.cu",
         replaces="src/repro/kernels/rank_candidates.py:52",
         launches=sum(launches.values()), launches_by_path=launches,
-        max_abs_err=err, shape=[nq, c, d], ms=ms,
+        max_abs_err=err, shape=[nq, c, d], ms=ms, kernel_ms=k_ms,
         plain_ms=cuda_ms(lambda: ref.ref_rank_dots(qn, x)),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=cuda_ms(lambda: torch.bmm(x, qn[:, :, None])),
@@ -1186,8 +1232,12 @@ def hamming_row(keys) -> dict:
     out = torch.empty((nq, n), dtype=torch.int32, device=a.device)
     fn = _build.load("hamming")
     stream = torch.cuda.current_stream().cuda_stream
-    ms = cuda_ms(lambda: fn(a32.data_ptr(), b32.data_ptr(), out.data_ptr(),
-                            nq, n, w, stream))
+
+    def launch():
+        return fn(a32.data_ptr(), b32.data_ptr(), out.data_ptr(), nq, n, w,
+                  stream)
+
+    ms, k_ms = cuda_ms(launch), kernel_ms(launch, iters=5)
     # 32-bit xor, popcount and add per word, at the card's fp32 op rate
     # (the table has no integer rate outside the tensor cores)
     b_ms, b_by = bound_ms(4 * (nq * w + n * w + nq * n), 3 * nq * n * w)
@@ -1197,6 +1247,7 @@ def hamming_row(keys) -> dict:
         replaces="src/repro/kernels/hamming.py:43",
         launches=launches, launches_from="this row (no path calls it)",
         max_abs_err=0 if exact else None, shape=[nq, n, w], ms=ms,
+        kernel_ms=k_ms,
         plain_ms=cuda_ms(lambda: ref.ref_hamming(a, b), iters=5),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         library_call="none: no single PyTorch call computes it")
@@ -1243,6 +1294,8 @@ def staged_row(ranked, launches, metric: str) -> dict:
     n_rows = int(torch.unique(slots[valid]).numel())   # both arenas
     ms = cuda_ms(lambda: gather_rank_staged_cuda(qn, store, staging, slots,
                                                  valid, angular))
+    k_ms = kernel_ms(lambda: gather_rank_staged_cuda(qn, store, staging,
+                                                     slots, valid, angular))
     b_ms, b_by = bound_ms(4 * (nq * d + n_rows * d + 2 * nq * c) + nq * c,
                           4 * n_valid * d)
     sl = slots.long()
@@ -1250,14 +1303,17 @@ def staged_row(ranked, launches, metric: str) -> dict:
                         staging[(sl - n_store).clamp(0, staging.shape[0] - 1)],
                         store[sl.clamp_max(n_store - 1)])   # (Q, C, d)
     return dict(
-        name="gather_rank_staged", route="cuda",
+        name="gather_rank_staged", route="cuda", design=GATHER_DESIGN,
         source="src/repro_torch/kernels/csrc/gather_rank.cu",
         replaces="src/repro/kernels/gather_rank.py:144",
         launches=launches["gather_rank_staged"], max_abs_err=err,
         bit_identical_to_store=bit_equal, shape=[nq, c, d],
         staging_rows=int(staging.shape[0]), valid_candidates=n_valid,
         staged_candidates=n_staged, distinct_rows=n_rows,
-        ms=ms, plain_ms=cuda_ms(lambda: ref.ref_gather_rank(
+        ms=ms, kernel_ms=k_ms,
+        timed="through gather_rank_staged_cuda; kernel_ms: "
+              "torch.profiler's kernel time",
+        plain_ms=cuda_ms(lambda: ref.ref_gather_rank(
             q, store, slots, valid, metric, staging=staging)),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=cuda_ms(lambda: torch.bmm(block, qn[:, :, None])))

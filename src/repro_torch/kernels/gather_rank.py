@@ -4,10 +4,12 @@ kernels (``csrc/gather_rank.cu``).
 They replace the JAX package's Pallas TPU kernels ``gather_rank_pallas``
 and ``gather_rank_staged_pallas`` (``src/repro/kernels/gather_rank.py``):
 candidate vectors are gathered by slot id inside the kernel and ranked
-against their query, so no (Q, C, d) block is materialised.  The staged
-kernel reads slots past the store from the cold tier's staging arena,
-through the same per-row code, so both rank a row bit-identically.  The
-plain version is :func:`repro_torch.kernels.ref.ref_gather_rank`;
+against their query, so no (Q, C, d) block is materialised.  A block
+compacts one query's valid candidates first, then gives each row a group
+of lanes that keeps several rows' loads in flight.  The staged kernel
+reads slots past the store from the cold tier's staging arena, through
+the same per-row code, so both rank a row bit-identically.  The plain
+version is :func:`repro_torch.kernels.ref.ref_gather_rank`;
 callers go through :func:`repro_torch.kernels.ops.gather_rank`, which
 normalises angular queries first.
 """
@@ -17,7 +19,7 @@ import torch
 
 from . import _build
 
-_MAX_DIM = 48 * 1024 // 4        # the query row lives in static-size smem
+_MAX_DIM = 48 * 1024 // 4        # the query row lives in shared memory
 
 
 def _check(name: str, q: torch.Tensor, arenas: tuple, slots: torch.Tensor,

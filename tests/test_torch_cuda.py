@@ -27,11 +27,23 @@ HASH_SHAPES = [(1, 8, 1), (7, 33, 2), (37, 100, 3), (128, 64, 4),
                (130, 257, 2), (300, 100, 10), (4096, 100, 10),
                (1024, 100, 10), (1000, 100, 7), (300, 101, 5),
                (45, 1000, 3)]
+#: (q, c, n store rows, d) for gather_rank: ragged shapes, then the main
+#: path's C = 512 and d = 100 at small Q, C = 1000 (two 512-candidate
+#: tiles, the second ragged), d on the 16-byte path (4, 128) and on the
+#: scalar path (99), and the d limit (12,288: the shared memory past 48 KB)
 RANK_SHAPES = [(1, 1, 1, 8), (3, 7, 13, 5), (8, 128, 100, 64),
-               (5, 130, 41, 17), (16, 96, 500, 100)]
-#: (q, c, n store rows, m staging rows, d): ragged d, N and M
+               (5, 130, 41, 17), (16, 96, 500, 100), (4, 512, 1000, 100),
+               (3, 1000, 300, 100), (5, 64, 50, 4), (5, 64, 50, 99),
+               (5, 64, 50, 128), (2, 40, 30, 12288)]
+#: (q, c, n store rows, m staging rows, d): ragged d, N and M, then as
+#: RANK_SHAPES (d = 7,168: the kNN-LM index's widest d_model) and a
+#: staging arena of one row
 STAGED_SHAPES = [(1, 1, 1, 1, 8), (3, 7, 13, 4, 5), (8, 128, 100, 37, 64),
-                 (5, 130, 41, 300, 17), (16, 96, 500, 1000, 100)]
+                 (5, 130, 41, 300, 17), (16, 96, 500, 1000, 100),
+                 (4, 512, 1000, 700, 100), (3, 1000, 300, 200, 100),
+                 (5, 64, 50, 40, 4), (5, 64, 50, 40, 99),
+                 (5, 64, 50, 40, 128), (2, 40, 30, 20, 7168),
+                 (4, 100, 50, 1, 100)]
 #: tolerances of the reference's kernel tests (tests/test_kernels.py)
 DOTS_TOL = 2e-5
 PAIR_TOL = 1e-4
@@ -179,22 +191,87 @@ def test_gather_rank_staged_kernel_matches_plain_on_card(q, c, n, m, d,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("c,d", [(96, 100), (512, 100), (96, 99)])
 @pytest.mark.parametrize("metric", ["angular", "l2"])
-def test_staged_rows_rank_bit_identically_on_card(metric):
+def test_staged_rows_rank_bit_identically_on_card(c, d, metric):
     """Store rows copied into the staging arena and addressed through
-    staging slots rank bit for bit as they do from the store."""
+    staging slots rank bit for bit as they do from the store: at the main
+    path's C = 512, and at d = 99 (scalar loads)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     qq, store, slots, valid = (t.cuda() for t in _t(
-        *rank_inputs(16, 96, 500, 100, seed=5)))
-    staging = torch.zeros((700, 100), device="cuda")
+        *rank_inputs(16, c, 500, d, seed=5)))
+    staging = torch.zeros((700, d), device="cuda")
     perm = torch.randperm(700, device="cuda")[:500]
     staging[perm] = store                         # row r -> staging perm[r]
-    staged = torch.where(torch.arange(96, device="cuda") % 2 == 0, slots,
+    staged = torch.where(torch.arange(c, device="cuda") % 2 == 0, slots,
                          500 + perm[slots.long()].to(torch.int32))
     a = ops.gather_rank(qq, store, slots, valid, metric)
     b = ops.gather_rank(qq, store, staged, valid, metric, staging=staging)
     assert torch.equal(a, b)
+
+
+def _unaligned(x: torch.Tensor) -> torch.Tensor:
+    """A copy of x whose data starts 4 bytes past a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("staged", [False, True])
+@pytest.mark.parametrize("metric", ["angular", "l2"])
+def test_scalar_and_vector_loads_rank_bit_identically_on_card(staged,
+                                                              metric):
+    """An arena that is not 16-byte aligned takes the kernels' scalar
+    loads; they sum the same products in the same order as the 16-byte
+    loads, so the distances are equal bit for bit (and to the plain
+    version within TOL)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    qq, store, staging, slots, valid = (t.cuda() for t in _t(
+        *staged_inputs(6, 512, 300, 200, 100, seed=17)))
+    if not staged:
+        staging = None
+        slots = slots.clamp_max(299)
+    a = ops.gather_rank(qq, store, slots, valid, metric, staging=staging)
+    b = ops.gather_rank(qq, _unaligned(store), slots, valid, metric,
+                        staging=None if staging is None
+                        else _unaligned(staging))
+    assert store.data_ptr() % 16 == 0 and _unaligned(store).data_ptr() % 16
+    assert torch.equal(a, b)
+    want = ref.ref_gather_rank(qq.cpu(), store.cpu(), slots.cpu(),
+                               valid.cpu(), metric,
+                               staging=None if staging is None
+                               else staging.cpu())
+    torch.testing.assert_close(b.cpu(), want, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("staged", [False, True])
+@pytest.mark.parametrize("metric", ["angular", "l2"])
+def test_all_invalid_rows_and_clipped_slots_on_card(staged, metric):
+    """Rows whose every candidate is invalid come back all +inf; negative
+    slots and slots past every arena clip as the plain version clips
+    them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(23)
+    qq, store, staging, _, valid = _t(*staged_inputs(5, 600, 40, 3, 100,
+                                                     seed=23))
+    slots = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, size=(5, 600),
+                                          dtype=np.int64).astype(np.int32))
+    slots[:, ::3] = torch.tensor([-1, 39, 40, 42, 43])[:, None]
+    valid[[1, 3]] = False
+    kw = dict(staging=staging.cuda()) if staged else {}
+    got = ops.gather_rank(qq.cuda(), store.cuda(), slots.cuda(),
+                          valid.cuda(), metric, **kw).cpu()
+    want = ref.ref_gather_rank(qq, store, slots, valid, metric,
+                               **(dict(staging=staging) if staged else {}))
+    assert torch.isinf(got[[1, 3]]).all()
+    assert torch.equal(torch.isinf(got), ~valid)
+    torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
 
 
 @pytest.mark.cuda

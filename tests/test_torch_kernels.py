@@ -22,8 +22,9 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from test_torch_cuda import (DOTS_SHAPES, DOTS_TOL, HAMMING_SHAPES,
                              HASH_SHAPES, PAIR_SHAPES, PAIR_TOL, RANK_SHAPES,
-                             TOL, _t, dots_inputs, hash_inputs, key_inputs,
-                             pair_inputs, rank_inputs)
+                             STAGED_SHAPES, TOL, _t, dots_inputs, hash_inputs,
+                             key_inputs, pair_inputs, rank_inputs,
+                             staged_inputs)
 from repro_torch.kernels import _build, ops, ref
 
 torch.set_num_threads(1)
@@ -106,6 +107,23 @@ def test_staging_arena_matches_jax_ref(metric):
     np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
     kern = np.asarray(jops.gather_rank(*args, staging=jnp.asarray(staging)))
     np.testing.assert_allclose(got, kern, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("q,c,n,m,d", STAGED_SHAPES)
+@pytest.mark.parametrize("metric", ["angular", "l2"])
+def test_gather_rank_staged_matches_jax(q, c, n, m, d, metric):
+    """The card tests' staged sweep (both arenas, clipped and masked
+    slots, a one-row arena) through the plain version against the JAX
+    package's staged kernel."""
+    qq, store, staging, slots, valid = staged_inputs(q, c, n, m, d,
+                                                     seed=q + 5 * c + m)
+    want = np.asarray(jops.gather_rank(
+        jnp.asarray(qq), jnp.asarray(store), jnp.asarray(slots),
+        jnp.asarray(valid), metric, staging=jnp.asarray(staging)))
+    got = ops.gather_rank(*_t(qq, store, slots, valid), metric,
+                          staging=torch.from_numpy(staging)).numpy()
+    np.testing.assert_array_equal(np.isinf(got), ~valid)
+    np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
 
 
 @pytest.mark.parametrize("q,c,d", DOTS_SHAPES)
