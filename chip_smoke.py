@@ -41,7 +41,9 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    one rule reads every row.  Every row also gives its kernel's device
    time as ``torch.profiler`` records it (``kernel_ms``), a second
    witness beside the events; ``pair_dist`` is held and timed at both of
-   its launches (hot and cold oracles);
+   its launches (hot and cold oracles), ``rank_dots`` at both of its
+   launch shapes (ZOrderIndex's block and MultiProbeFlat's first query
+   step) and ``hamming`` through its wrapper, range check included;
 8. the kernels line, the card's name and power limit, then the last
    line:
    ``{"ok": true, "device": {...}}``.
@@ -73,7 +75,7 @@ from repro_torch.core.lsh import region_ids  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.gather_rank import (  # noqa: E402
     gather_rank_cuda, gather_rank_staged_cuda)
-from repro_torch.kernels.hamming import _as_u32_bits  # noqa: E402
+from repro_torch.kernels.hamming import hamming_cuda  # noqa: E402
 from repro_torch.kernels.lsh_hash import lsh_hash_cuda  # noqa: E402
 from repro_torch.kernels.pair_dist import pair_dist_cuda  # noqa: E402
 from repro_torch.kernels.rank_candidates import rank_dots_cuda  # noqa: E402
@@ -103,6 +105,8 @@ DEVICE = "cuda"
 SPIN_CYCLES = 100_000    # ~50 us of device spin before each timed call
 LEAD_IN = 256            # spins that open each profiler session
 GATHER_DESIGN = "compacted-lane-groups"   # gather_rank.cu since PR 16
+DOTS_DESIGN = "lane-group-row-stream"     # rank_dots.cu
+HAMMING_DESIGN = "int8-mma-bitcount"      # hamming.cu
 L2_POOL_ROWS = 20_000    # gather_rank's L2-resident yardstick
 
 
@@ -168,15 +172,16 @@ def cuda_ms(fn, iters: int = 20) -> float:
     return sum(e0.elapsed_time(e1) for e0, e1 in ev) / iters
 
 
-def kernel_ms(fn, iters: int = 20, tries: int = 3):
-    """Mean device time, in ms, of the kernels one ``fn()`` launches, as
-    ``torch.profiler`` records them, with the L2 flushed before each call
-    as in :func:`cuda_ms` (the flush's own kernel is left out).  A witness
-    beside cuda_ms that owes nothing to its events or its spin: it sums
-    the kernels' own durations, so neither host time nor the gaps
-    between a call's launches enter it.  A session that comes back short
-    (now and then one comes back empty) is run again, up to ``tries``
-    sessions; None where none handed back every call's kernels."""
+def kernel_ms(fn, iters: int = 20, tries: int = 3, only: str = ""):
+    """Mean device time, in ms, of the kernels one ``fn()`` launches (those
+    whose name holds ``only``), as ``torch.profiler`` records them, with
+    the L2 flushed before each call as in :func:`cuda_ms` (the flush's
+    own kernel is left out).  A witness beside cuda_ms that owes nothing
+    to its events or its spin: it sums the kernels' own durations, so
+    neither host time nor the gaps between a call's launches enter it.
+    A session that comes back short (now and then one comes back empty)
+    is run again, up to ``tries`` sessions; None where none handed back
+    every call's kernels."""
     from torch.profiler import ProfilerActivity, profile
     l2_flush()
     for _ in range(3):
@@ -193,7 +198,7 @@ def kernel_ms(fn, iters: int = 20, tries: int = 3):
         for e in device_events(prof)[0]:
             if FLUSH_KERNEL in e.name():
                 flushes += 1
-            else:
+            elif only in e.name():
                 kernels += 1
                 ns += e.duration_ns()
         if flushes == iters and kernels and kernels % iters == 0:
@@ -716,12 +721,12 @@ def phase_main(args):
 # ----------------------------------------------------------------------
 # phase 5: the paper's comparators on the hot path's items and queries
 # ----------------------------------------------------------------------
-def run_comparator(index, ids, vecs, q, batch: int, keep_dots: bool):
+def run_comparator(index, ids, vecs, q, batch: int):
     """Insert (ids, vecs) in batches and answer q once, with the launch
     counts set to 0 just before and read just after.  Returns the answer,
     insert and query seconds, the launches, each query's candidate count
-    (the valid entries ``pairwise_rank`` got) and, with ``keep_dots``,
-    the inputs of every ``rank_dots`` the query ran."""
+    (the valid entries ``pairwise_rank`` got) and the inputs of the first
+    ``rank_dots`` the query ran."""
     ranks, dots = [], []
     torch.cuda.synchronize()
     ops.reset_launches()
@@ -733,11 +738,11 @@ def run_comparator(index, ids, vecs, q, batch: int, keep_dots: bool):
     with tapped(ops, "pairwise_rank",
                 lambda qq, cand, valid, metric: ranks.append(valid.sum(1))), \
             tapped(ops, "rank_dots", lambda qq, xx: dots.append(
-                (qq, xx) if keep_dots else None)):
+                None if dots else (qq, xx))):
         t0 = time.perf_counter()
         got = index.query(q, 10)
         t_q = time.perf_counter() - t0
-    return got, t_ins, t_q, dict(ops.LAUNCHES), torch.cat(ranks), dots
+    return got, t_ins, t_q, dict(ops.LAUNCHES), torch.cat(ranks), dots[0]
 
 
 def phase_serialized(cfg, proj, seed: int):
@@ -805,9 +810,10 @@ def phase_baselines(args, hot):
     """ZOrderIndex and MultiProbeFlat (the reference's defaults, L = 10)
     on the hot path's items and queries, beside PFO's own answer, scored
     against the hot path's BruteForce oracle; then Fig. 7.  Returns the
-    inputs of the kernel rows it feeds: rank_dots' (ZOrderIndex's block),
-    hamming's (MultiProbeFlat's keys) and each comparator's rank_dots
-    launches."""
+    inputs of the kernel rows it feeds: rank_dots' (each comparator's
+    first launch: ZOrderIndex's one block and MultiProbeFlat's first of
+    its query steps), hamming's (MultiProbeFlat's keys) and each
+    comparator's rank_dots launches."""
     cfg = main_config()
     dev = torch.device(DEVICE)
     ids, vecs, q = hot["ids"], hot["vecs"], hot["q"]
@@ -831,7 +837,7 @@ def phase_baselines(args, hot):
     for name, cls in (("zorder", ZOrderIndex), ("multiprobe", MultiProbeFlat)):
         index = cls(cfg, device=dev, proj=proj)
         (got_ids, got_d), t_ins, t_q, launches, n_cand, dots = run_comparator(
-            index, ids, vecs, q, 4096, keep_dots=name == "zorder")
+            index, ids, vecs, q, 4096)
         check(launches["rank_dots"] >= 1, f"{name} ran no rank_dots: "
               f"{launches}")
         check(got_ids.shape == (nq, 10) and np.array_equal(
@@ -842,9 +848,8 @@ def phase_baselines(args, hot):
                          candidates_max=int(n_cand.max()),
                          launches=launches, **scores(got_ids, got_d))
         feeds[name] = launches["rank_dots"]
-        if name == "zorder":
-            feeds["dots_in"] = dots[-1]
-        else:
+        feeds[name + "_dots_in"] = dots
+        if name == "multiprobe":
             feeds["keys"] = (index._buckets(q)[1],
                              index._buckets(vecs[:HAMMING_KEYS])[1])
             out[name]["bucket_fill_max"] = int(index.bucket_fill.max())
@@ -1183,41 +1188,51 @@ def pair_dist_row(hot: dict, cold: dict, launches: dict) -> dict:
         cold_oracle=cold)
 
 
-def rank_dots_row(xin, launches: dict) -> dict:
-    """rank_dots on ZOrderIndex's own gathered (Q, 2*window, d) block."""
+def rank_dots_at(xin) -> dict:
+    """rank_dots on one comparator's own (unit) block, held against its
+    plain version, with its times and bound.  The kernel is timed through
+    ``rank_dots_cuda`` in turns with ``torch.bmm`` on the same block."""
     qn, x = xin
     got = rank_dots_cuda(qn, x)
     plain = ref.ref_rank_dots(qn, x)
     err = float((got - plain).abs().max())
     torch.testing.assert_close(got, plain, rtol=RANK_TOL, atol=RANK_TOL)
+    del got, plain
     nq, c, d = x.shape
-    out = torch.empty((nq, c), device=qn.device)
-    fn = _build.load("rank_dots")
-    stream = torch.cuda.current_stream().cuda_stream
-
-    def launch():
-        return fn(qn.data_ptr(), x.data_ptr(), out.data_ptr(), nq, c, d,
-                  stream)
-
-    ms, k_ms = cuda_ms(launch), kernel_ms(launch)
+    ms, lib_ms = paired_ms(lambda: rank_dots_cuda(qn, x),
+                           lambda: torch.bmm(x, qn[:, :, None]))
     b_ms, b_by = bound_ms(4 * (nq * d + nq * c * d + nq * c), 2 * nq * c * d)
     return dict(
-        name="rank_dots", route="cuda",
+        max_abs_err=err, shape=[nq, c, d], ms=ms,
+        kernel_ms=kernel_ms(lambda: rank_dots_cuda(qn, x)),
+        plain_ms=cuda_ms(lambda: ref.ref_rank_dots(qn, x)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+
+
+def rank_dots_row(zorder: dict, multiprobe: dict, launches: dict) -> dict:
+    """rank_dots at both of its launch shapes on the path, from
+    :func:`rank_dots_at`: ZOrderIndex's one (Q, 2*window, d) block (the
+    row's own numbers) and MultiProbeFlat's first query step, (Q / 4,
+    ~10,000, d) (``multiprobe_launch``).  ``launches`` counts it by
+    path."""
+    return dict(
+        name="rank_dots", route="cuda", design=DOTS_DESIGN,
         source="src/repro_torch/kernels/csrc/rank_dots.cu",
         replaces="src/repro/kernels/rank_candidates.py:52",
         launches=sum(launches.values()), launches_by_path=launches,
-        max_abs_err=err, shape=[nq, c, d], ms=ms, kernel_ms=k_ms,
-        plain_ms=cuda_ms(lambda: ref.ref_rank_dots(qn, x)),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=cuda_ms(lambda: torch.bmm(x, qn[:, :, None])),
-        library_call="torch.bmm(x, q[:, :, None])")
+        **zorder,
+        timed="through rank_dots_cuda, in turns with torch.bmm; "
+              "kernel_ms: torch.profiler's kernel time",
+        library_call="torch.bmm(x, q[:, :, None])",
+        multiprobe_launch=multiprobe)
 
 
 def hamming_row(keys) -> dict:
     """hamming on MultiProbeFlat's own keys: its 1024 query keys against
     the first HAMMING_KEYS stored items' keys (W = L words).  Nothing on
     any path calls it (the JAX package only names it), so its launches
-    are this row's own."""
+    are this row's own.  Timed through ``hamming_cuda`` on the int64
+    keys, its range check included; ``kernel_ms`` is the kernel alone."""
     a, b = keys
     before = ops.LAUNCHES["hamming"]
     got = ops.hamming(a, b)
@@ -1228,26 +1243,27 @@ def hamming_row(keys) -> dict:
     del got, plain
     nq, w = a.shape
     n = b.shape[0]
-    a32, b32 = _as_u32_bits(a), _as_u32_bits(b)
+    ms = cuda_ms(lambda: hamming_cuda(a, b))
+    k_ms = kernel_ms(lambda: hamming_cuda(a, b), iters=5, only="hamming")
+    # a yardstick: the same (Q, N) int32 bytes written with no work
     out = torch.empty((nq, n), dtype=torch.int32, device=a.device)
-    fn = _build.load("hamming")
-    stream = torch.cuda.current_stream().cuda_stream
-
-    def launch():
-        return fn(a32.data_ptr(), b32.data_ptr(), out.data_ptr(), nq, n, w,
-                  stream)
-
-    ms, k_ms = cuda_ms(launch), kernel_ms(launch, iters=5)
+    fill_ms = cuda_ms(lambda: out.fill_(1))
+    del out
     # 32-bit xor, popcount and add per word, at the card's fp32 op rate
     # (the table has no integer rate outside the tensor cores)
     b_ms, b_by = bound_ms(4 * (nq * w + n * w + nq * n), 3 * nq * n * w)
     return dict(
-        name="hamming", route="cuda",
+        name="hamming", route="cuda", design=HAMMING_DESIGN,
         source="src/repro_torch/kernels/csrc/hamming.cu",
         replaces="src/repro/kernels/hamming.py:43",
         launches=launches, launches_from="this row (no path calls it)",
         max_abs_err=0 if exact else None, shape=[nq, n, w], ms=ms,
-        kernel_ms=k_ms,
+        kernel_ms=k_ms, fill_ms=fill_ms,
+        timed="through hamming_cuda on the int64 keys, its range check "
+              "(a reduction over each operand's high words, one readback) "
+              "included; kernel_ms: torch.profiler's time of the hamming "
+              "kernel alone; fill_ms: the output's bytes written by "
+              "torch's fill_",
         plain_ms=cuda_ms(lambda: ref.ref_hamming(a, b), iters=5),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         library_call="none: no single PyTorch call computes it")
@@ -1346,8 +1362,10 @@ def main() -> int:
     hot_pair = pair_dist_at(hot["oracle_in"])
     feeds = phase_baselines(args, hot)
     pair_launches = dict(hot_oracle=hot["oracle_launches"])
-    rows.append(rank_dots_row(feeds["dots_in"], dict(
-        zorder=feeds["zorder"], multiprobe=feeds["multiprobe"])))
+    rows.append(rank_dots_row(
+        rank_dots_at(feeds["zorder_dots_in"]),
+        rank_dots_at(feeds["multiprobe_dots_in"]),
+        dict(zorder=feeds["zorder"], multiprobe=feeds["multiprobe"])))
     rows.append(hamming_row(feeds["keys"]))
     del hot, feeds
     torch.cuda.empty_cache()

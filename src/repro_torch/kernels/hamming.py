@@ -2,9 +2,10 @@
 
 Replaces the JAX package's Pallas TPU kernel ``hamming_pallas``
 (``src/repro/kernels/hamming.py``): bit differences between packed
-compound keys, XOR + ``__popc`` in shared-memory tiles, so the (Q, N, W)
-XOR is never built.  The port carries keys as int64 in [0, 2^32) (as
-``lsh_hash`` returns them); the kernel reads their 32-bit patterns.
+compound keys, counted on the int8 tensor cores as ``popc(a) + popc(b) -
+2 popc(a & b)``, so the (Q, N, W) XOR is never built.  The port carries
+keys as int64 in [0, 2^32) (as ``lsh_hash`` returns them); the kernel
+reads the int64 keys and takes their low 32 bits itself.
 The plain version is :func:`repro_torch.kernels.ref.ref_hamming`;
 callers go through :func:`repro_torch.kernels.ops.hamming`.
 """
@@ -14,16 +15,16 @@ import torch
 
 from . import _build
 
-_MAX_WORDS = 48 * 1024 // (4 * (32 + 257))   # both key tiles in 48 KB smem
-_MAX_GRID_Y = 65535 * 32                     # 32 query keys a block row
+_TILE_Q, _TILE_N = 64, 128     # query x stored keys of a block's tile
+_MAX_WORDS = 63                 # both key tiles, 192 x (W | 1) words, in 48 KB
+_MAX_TILES = 2**31 - 1          # the 1-D grid walks every tile
 
 
-def _as_u32_bits(keys: torch.Tensor) -> torch.Tensor:
-    """int64 keys in [0, 2^32) -> int32 tensors with the same 32 bits."""
-    if bool(((keys < 0) | (keys > 0xFFFFFFFF)).any()):
-        raise ValueError("hamming_cuda takes keys in [0, 2^32)")
-    return torch.where(keys >= 2**31, keys - 2**32, keys).to(
-        torch.int32).contiguous()
+def _high_words(keys: torch.Tensor) -> torch.Tensor:
+    """Whether any int64 key has a bit set above its low 32 (a 0-d bool
+    tensor, on the keys' device): one reduction over the high words, read
+    in place (little-endian)."""
+    return keys.view(torch.int32)[:, 1::2].any()
 
 
 def hamming_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -37,15 +38,19 @@ def hamming_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"bad shapes a{tuple(a.shape)} b{tuple(b.shape)}")
     nq, w = a.shape
     n = b.shape[0]
-    if not 1 <= w <= _MAX_WORDS or nq > _MAX_GRID_Y or n >= 2**31:
+    if (not 1 <= w <= _MAX_WORDS or nq >= 2**31 or n >= 2**31
+            or -(-nq // _TILE_Q) * -(-n // _TILE_N) > _MAX_TILES):
         raise ValueError(f"hamming_cuda takes 1 <= W <= {_MAX_WORDS} and "
                          "Q, N within its grid")
     out = torch.empty((nq, n), dtype=torch.int32, device=a.device)
     if nq and n:
-        a32, b32 = _as_u32_bits(a), _as_u32_bits(b)
+        a, b = a.contiguous(), b.contiguous()
+        bad = _high_words(a) | _high_words(b)
         fn = _build.load("hamming")
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        _build.check(fn(a32.data_ptr(), b32.data_ptr(), out.data_ptr(), nq, n,
-                        w, stream), "hamming")
+        if bool(bad):                   # the one readback
+            raise ValueError("hamming_cuda takes keys in [0, 2^32)")
+        _build.check(fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), nq, n, w,
+                        stream), "hamming")
         _build.LAUNCHES["hamming"] += 1
     return out

@@ -2,8 +2,9 @@
 
 Replaces the JAX package's Pallas TPU kernel ``rank_dots_pallas``
 (``src/repro/kernels/rank_candidates.py``): the inner products of each
-query with its own pre-gathered candidate block, one warp per row.
-The plain version is :func:`repro_torch.kernels.ref.ref_rank_dots`;
+query with its own pre-gathered candidate block, streamed a row to a
+group of lanes with every load of the row issued before its first
+multiply.  The plain version is :func:`repro_torch.kernels.ref.ref_rank_dots`;
 callers go through :func:`repro_torch.kernels.ops.rank_dots` (and
 ``ops.pairwise_rank``, which the comparators use).
 """
@@ -13,8 +14,9 @@ import torch
 
 from . import _build
 
-_MAX_DIM = 48 * 1024 // 4        # the query row lives in static-size smem
-_MAX_C = 65535 * 64              # candidates: 64 a block, grid.y <= 65535
+_MAX_DIM = 12288                 # the widest d the card tests hold
+_TILE = 512                      # candidates of one query a block
+_MAX_BLOCKS = 2**31 - 1          # the 1-D grid walks every tile
 
 
 def rank_dots_cuda(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -30,9 +32,9 @@ def rank_dots_cuda(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
             or x.shape[2] != q.shape[1]):
         raise ValueError(f"bad shapes q{tuple(q.shape)} x{tuple(x.shape)}")
     nq, c, d = x.shape
-    if d > _MAX_DIM or c > _MAX_C or nq >= 2**31:
-        raise ValueError(f"rank_dots_cuda takes d <= {_MAX_DIM}, "
-                         f"C <= {_MAX_C}")
+    if d > _MAX_DIM or c >= 2**31 or nq * -(-c // _TILE) > _MAX_BLOCKS:
+        raise ValueError(f"rank_dots_cuda takes d <= {_MAX_DIM} and Q, C "
+                         "within its grid")
     out = torch.empty((nq, c), dtype=torch.float32, device=q.device)
     if nq and c:
         fn = _build.load("rank_dots")

@@ -48,14 +48,23 @@ STAGED_SHAPES = [(1, 1, 1, 1, 8), (3, 7, 13, 4, 5), (8, 128, 100, 37, 64),
 DOTS_TOL = 2e-5
 PAIR_TOL = 1e-4
 #: (q, c, d) for rank_dots, (q, n, d) for pair_dist, (q, n, w) for hamming:
-#: the reference's sweeps, plus 1s, d = 100 and non-multiples of the tiles
+#: the reference's sweeps, plus 1s, d = 100 and non-multiples of the tiles;
+#: for rank_dots also d = 99 (scalar loads) and a block shaped like
+#: MultiProbeFlat's (~10,000 candidates, several 512-candidate tiles a
+#: query, the last ragged); for hamming, Q and N off the kernel's 64 x 128
+#: tiles, W = 1, 10, 42 and the limit 63
 DOTS_SHAPES = [(1, 1, 8), (5, 33, 48), (8, 128, 128), (9, 130, 65),
-               (1, 1, 1), (3, 65, 100)]
+               (1, 1, 1), (3, 65, 100), (5, 64, 99), (4, 10000, 100)]
+#: rank_dots past one pass of the lanes (the query read a pass at a time):
+#: d = 7,168 (the kNN-LM index's widest d_model) and the limit 12,288, on
+#: unit rows (``unit_dots_inputs``)
+WIDE_DOTS_SHAPES = [(2, 40, 7168), (3, 17, 12288)]
 PAIR_SHAPES = [(1, 1, 8), (5, 57, 48), (128, 128, 256), (33, 200, 100),
                (1, 1, 1), (129, 131, 9), (130, 300, 100), (1024, 4099, 100),
                (1, 1, 4), (200, 300, 1000)]
 HAMMING_SHAPES = [(1, 1, 1), (9, 13, 4), (130, 70, 10), (33, 257, 10),
-                  (2, 300, 41)]
+                  (2, 300, 41), (64, 128, 10), (65, 129, 10), (200, 1028, 1),
+                  (63, 300, 42), (70, 260, 63)]
 
 
 def hash_inputs(n, d, tables, seed):
@@ -96,6 +105,17 @@ def dots_inputs(q, c, d, seed):
     rng = np.random.default_rng(seed)
     return (rng.normal(size=(q, d)).astype(np.float32),
             rng.normal(size=(q, c, d)).astype(np.float32))
+
+
+def unit_dots_inputs(q, c, d, seed):
+    """dots_inputs with every row scaled to unit length, as
+    ``pairwise_rank`` hands them for the angular metric.  At d in the
+    thousands two fp32 summation orders of N(0, 1) products part by
+    ~1e-4 (the JAX package's and torch's plain versions already do), past
+    the reference's 2e-5; unit rows keep that tolerance meaningful."""
+    qq, x = dots_inputs(q, c, d, seed)
+    return (qq / np.linalg.norm(qq, axis=-1, keepdims=True),
+            x / np.linalg.norm(x, axis=-1, keepdims=True))
 
 
 def pair_inputs(q, n, d, seed):
@@ -286,6 +306,33 @@ def test_rank_dots_kernel_matches_plain_on_card(q, c, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("q,c,d", WIDE_DOTS_SHAPES)
+def test_rank_dots_kernel_wide_rows_match_plain_on_card(q, c, d):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    qq, x = _t(*unit_dots_inputs(q, c, d, seed=q + c + d))
+    got = ops.rank_dots(qq.cuda(), x.cuda()).cpu()
+    torch.testing.assert_close(got, ref.ref_rank_dots(qq, x), rtol=DOTS_TOL,
+                               atol=DOTS_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,c,d", [(3, 700, 100), (2, 50, 1024)])
+def test_rank_dots_scalar_and_vector_loads_bit_identical_on_card(q, c, d):
+    """A block or query that is not 16-byte aligned takes the kernel's
+    scalar loads; they sum the same products in the same order as the
+    16-byte loads, so the dots are equal bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    qq, x = (t.cuda() for t in _t(*dots_inputs(q, c, d, seed=c + d)))
+    a = ops.rank_dots(qq, x)
+    assert torch.equal(a, ops.rank_dots(qq, _unaligned(x)))
+    assert torch.equal(a, ops.rank_dots(_unaligned(qq), x))
+    torch.testing.assert_close(a.cpu(), ref.ref_rank_dots(qq.cpu(), x.cpu()),
+                               rtol=DOTS_TOL, atol=DOTS_TOL)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("q,n,d", PAIR_SHAPES)
 def test_pair_dist_kernel_matches_plain_on_card(q, n, d):
     if not torch.cuda.is_available():
@@ -321,34 +368,79 @@ def test_pair_dist_self_distances_on_card(n, seed):
     assert bool((same | near).all())
 
 
+LEAD_IN = 256       # uncounted device spins that open a profiler session
+
+
+def _device_kernels(call, *args):
+    """The names of the CUDA kernels one ``call(*args)`` launches, as
+    torch.profiler records them (after one warm call), and its result.
+    Once one profiler session has run in a process, later ones can lose
+    their first device events, now and then all of them: each session
+    opens with LEAD_IN one-cycle spins (``spin_kernel``, left out of the
+    names) to absorb that, and one with no event past the spins is run
+    again, up to three sessions, as ``chip_smoke.kernel_ms`` does."""
+    from torch.profiler import ProfilerActivity, profile
+    call(*args)                                 # built and warm
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(LEAD_IN):
+                torch.cuda._sleep(1)
+            out = call(*args)
+            torch.cuda.synchronize()
+        names = [e.name() for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == torch.autograd.DeviceType.CUDA
+                 and "spin_kernel" not in e.name()]
+        if names:
+            break
+    return names, out
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel,n", [("lsh_hash", 1024), ("lsh_hash", 4096),
-                                      ("pair_dist", 700)])
+                                      ("pair_dist", 700), ("rank_dots", 128),
+                                      ("rank_dots", 10000)])
 def test_one_call_is_one_kernel_on_card(kernel, n):
     """torch.profiler sees one CUDA kernel for one wrapper call: lsh_hash
-    writes its int64 keys itself (no conversion pass) and pair_dist sums
-    its norms itself (no norm passes)."""
+    writes its int64 keys itself (no conversion pass), pair_dist sums its
+    norms itself (no norm passes) and rank_dots stores its dots itself,
+    at ZOrderIndex's 128 candidates a query and MultiProbeFlat's ~10,000."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels.lsh_hash import lsh_hash_cuda
     from repro_torch.kernels.pair_dist import pair_dist_cuda
+    from repro_torch.kernels.rank_candidates import rank_dots_cuda
     if kernel == "lsh_hash":
         args = tuple(t.cuda() for t in _t(*hash_inputs(n, 100, 10, seed=n)))
         call = lsh_hash_cuda
-    else:
+    elif kernel == "pair_dist":
         args = tuple(t.cuda() for t in _t(*pair_inputs(n, 900, 100, seed=n)))
         call = pair_dist_cuda
-    call(*args)                                 # built and warm
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        out = call(*args)
-        torch.cuda.synchronize()
-    names = [e.name() for e in prof.profiler.kineto_results.events()
-             if e.device_type() == torch.autograd.DeviceType.CUDA]
+    else:
+        args = tuple(t.cuda() for t in _t(*dots_inputs(8, n, 100, seed=n)))
+        call = rank_dots_cuda
+    names, out = _device_kernels(call, *args)
     assert len(names) == 1 and kernel in names[0], names
     assert out.dtype == (torch.int64 if kernel == "lsh_hash"
                          else torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,n,w", [(1024, 4096, 10), (70, 130, 3)])
+def test_hamming_call_is_one_kernel_and_no_conversion_on_card(q, n, w):
+    """One hamming_cuda call launches one hamming kernel, which reads the
+    int64 keys itself: beside it only the range check's reductions run,
+    and no pass converts or copies the keys."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.hamming import hamming_cuda
+    a, b = (t.cuda() for t in _t(*key_inputs(q, n, w, seed=q + n)))
+    names, out = _device_kernels(hamming_cuda, a, b)
+    kernels = [k for k in names if not k.startswith(("Memcpy", "Memset"))]
+    assert sum("hamming" in k for k in kernels) == 1, names
+    assert not any(word in k.lower() for k in kernels
+                   for word in ("copy", "where")), names
+    assert out.dtype == torch.int32 and out.shape == (q, n)
 
 
 @pytest.mark.cuda
@@ -360,6 +452,38 @@ def test_hamming_kernel_exact_on_card(q, n, w):
     got = ops.hamming(a.cuda(), b.cuda()).cpu()
     assert got.dtype == torch.int32
     assert torch.equal(got, ref.ref_hamming(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,n,w", [(3, 7, 1), (65, 130, 10), (40, 200, 63)])
+def test_hamming_kernel_high_keys_exact_on_card(q, n, w):
+    """Keys at and above 2^31 (the int32 sign bit) and keys with all 32
+    bits set, bit for bit against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(q + n + w)
+    a = rng.integers(2**31, 2**32, size=(q, w), dtype=np.uint64)
+    b = rng.integers(0, 2**32, size=(n, w), dtype=np.uint64)
+    a[::2] = 0xFFFFFFFF
+    b[::3] = 0xFFFFFFFF
+    b[1::3] = 2**31
+    a, b = _t(a.astype(np.int64), b.astype(np.int64))
+    got = ops.hamming(a.cuda(), b.cuda()).cpu()
+    assert torch.equal(got, ref.ref_hamming(a, b))
+    assert (got[::2, ::3] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", [-1, 2**32, 2**40])
+def test_hamming_rejects_keys_out_of_range_on_card(bad):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    a, b = (t.cuda() for t in _t(*key_inputs(5, 9, 3, seed=4)))
+    for x, y in ((a, b), (b, a)):
+        x = x.clone()
+        x[-1, -1] = bad
+        with pytest.raises(ValueError):
+            ops.hamming(x, y)
 
 
 @pytest.mark.cuda

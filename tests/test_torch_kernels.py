@@ -22,9 +22,9 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from test_torch_cuda import (DOTS_SHAPES, DOTS_TOL, HAMMING_SHAPES,
                              HASH_SHAPES, PAIR_SHAPES, PAIR_TOL, RANK_SHAPES,
-                             STAGED_SHAPES, TOL, _t, dots_inputs, hash_inputs,
-                             key_inputs, pair_inputs, rank_inputs,
-                             staged_inputs)
+                             STAGED_SHAPES, TOL, WIDE_DOTS_SHAPES, _t,
+                             dots_inputs, hash_inputs, key_inputs, pair_inputs,
+                             rank_inputs, staged_inputs, unit_dots_inputs)
 from repro_torch.kernels import _build, ops, ref
 
 torch.set_num_threads(1)
@@ -130,6 +130,19 @@ def test_gather_rank_staged_matches_jax(q, c, n, m, d, metric):
 def test_rank_dots_matches_jax(q, c, d):
     """The plain version against the JAX package's ref and its kernel."""
     qq, x = dots_inputs(q, c, d, seed=q + 3 * c + d)
+    got = ops.rank_dots(*_t(qq, x)).numpy()
+    np.testing.assert_allclose(got, np.asarray(jref.ref_rank_dots(qq, x)),
+                               rtol=DOTS_TOL, atol=DOTS_TOL)
+    np.testing.assert_allclose(got, np.asarray(jops.rank_dots(
+        jnp.asarray(qq), jnp.asarray(x))), rtol=DOTS_TOL, atol=DOTS_TOL)
+
+
+@pytest.mark.parametrize("q,c,d", WIDE_DOTS_SHAPES)
+def test_rank_dots_wide_rows_match_jax(q, c, d):
+    """Past one pass of the kernel's lanes, on unit rows (see
+    ``unit_dots_inputs``): the plain version against the JAX package's
+    ref and its kernel."""
+    qq, x = unit_dots_inputs(q, c, d, seed=q + 3 * c + d)
     got = ops.rank_dots(*_t(qq, x)).numpy()
     np.testing.assert_allclose(got, np.asarray(jref.ref_rank_dots(qq, x)),
                                rtol=DOTS_TOL, atol=DOTS_TOL)
