@@ -14,24 +14,39 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    compaction, deletes of cold-only ids), and on the card the trace
    through an all-device index whose ring never fills must answer
    bit-identically;
-4. the hot main path at a realistic size: ``PFOIndex.insert / query /
+4. the stream engine on a small seeded stream (``stream_trace``): the
+   same requests through ``StreamEngine`` on the CPU and on the card, in
+   strict and in window ordering, on the hot trace config and on a
+   spilling cold one; answers, acks, stats, flag counters, sync counts
+   and every integer leaf equal, distances within 1e-5; and on the card
+   a strict engine equal, bit for bit, to the same requests as
+   ``PFOIndex`` calls;
+5. the hot main path at a realistic size: ``PFOIndex.insert / query /
    delete`` on data shaped like ann-benchmarks' glove-100-angular
    (clustered unit vectors, d = 100, made from ``--seed``), with the
    kernel launch counts set to 0 just before and read just after; its
    recall@10 is measured against ``BruteForce`` (the ``pair_dist``
    kernel), whose ids are also held against the plain version's;
-5. the paper's comparators on the hot path's own items and queries
+6. the stream engine on that index (``stream``): the streaming
+   benchmark's 50/25/12.5/12.5 query/insert/delete/update mix in windows
+   of 256 requests, 32,768 measured after a warm prefix, the counts set
+   to 0 just before and read just after, every answer held to a
+   window-mode oracle on the card; requests/s against the same stream as
+   per-request ``PFOIndex`` calls, flush and request latencies, one flag
+   readback per round, the syncs no one counted, a traced flush's idle
+   share, and ``lsh_hash`` / ``gather_rank`` at the 256-row bucket;
+7. the paper's comparators on the hot path's own items and queries
    (``baselines``): ``ZOrderIndex`` and ``MultiProbeFlat`` inserted and
    queried beside PFO's answer, each with recall@10 and Eq. 1's error
    ratio against ``BruteForce``; ``SerializedPFO`` against a dispatched
-   ``PFOIndex`` on 3,000 vectors, its forest equal on the CPU and on the
+   ``PFOIndex`` on 1,500 vectors, its forest equal on the CPU and on the
    card; counts set to 0 just before each comparator and read just
    after;
-6. the cold path at glove-100 width: 1,000,000 inserts with churn into
+8. the cold path at glove-100 width: 1,000,000 inserts with churn into
    an index whose store holds a quarter of them, spilling to file-backed
    segments; queries of cold-only items and deletes of them, counts set
    to 0 just before and read just after;
-7. each kernel against its plain version on the card, at the shapes its
+9. each kernel against its plain version on the card, at the shapes its
    path gave it, with its time, the plain version's time, one PyTorch
    library call's time and the least time the card could take (the
    bound): the larger of the bytes the call must move over the memory
@@ -43,10 +58,11 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    witness beside the events; ``pair_dist`` is held and timed at both of
    its launches (hot and cold oracles), ``rank_dots`` at both of its
    launch shapes (ZOrderIndex's block and MultiProbeFlat's first query
-   step) and ``hamming`` through its wrapper, range check included;
-8. the kernels line, the card's name and power limit, then the last
-   line:
-   ``{"ok": true, "device": {...}}``.
+   step), ``hamming`` through its wrapper, range check included, and
+   ``lsh_hash`` and ``gather_rank`` also at the stream's 256-row bucket
+   (``stream_bucket``, with their launches by path);
+10. the kernels line, the card's name and power limit, then the last
+    line: ``{"ok": true, "device": {...}}``.
 
 Everything worth keeping is printed as one JSON object per line.
 """
@@ -79,6 +95,8 @@ from repro_torch.kernels.hamming import hamming_cuda  # noqa: E402
 from repro_torch.kernels.lsh_hash import lsh_hash_cuda  # noqa: E402
 from repro_torch.kernels.pair_dist import pair_dist_cuda  # noqa: E402
 from repro_torch.kernels.rank_candidates import rank_dots_cuda  # noqa: E402
+from repro_torch.obs import Obs  # noqa: E402
+from repro_torch.serving import StreamConfig, StreamEngine, drive  # noqa: E402
 
 # published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bytes/s, fp32
 # FLOP/s outside the tensor cores and dense TF32 FLOP/s on them.  A bound
@@ -98,7 +116,7 @@ QUERIES = 1024           # k = 10, half self-queries, half fresh vectors
 DELETES = 4096           # enough to fill the tombstone buffer and merge
 COLD_ITEMS = 1_000_000   # the cold path's inserts, in waves of COLD_WAVE
 COLD_WAVE = 4096
-FIG7_ITEMS = 3000        # paper_figs.fig7's larger n
+FIG7_ITEMS = 1500        # paper_figs.fig7's n (3000, cut for time)
 FIG7_CHECK = 300         # the prefix whose forest is held CPU vs card
 HAMMING_KEYS = 1 << 18   # stored keys the hamming row ranks against
 DEVICE = "cuda"
@@ -532,7 +550,156 @@ def phase_cold_trace(seed: int):
 
 
 # ----------------------------------------------------------------------
-# phase 4: the hot main path at a realistic size
+# phase 4: the stream engine on a small stream, CPU vs card
+# ----------------------------------------------------------------------
+def stream_ops(vecs: np.ndarray, seed: int, n_prefix: int, n_ops: int):
+    """A seeded interleaved stream over ``vecs``: ``n_prefix`` inserts with
+    a forced seal after every 100 (the ring fills, so later seals merge
+    or spill first), then ``n_ops`` requests: inserts of fresh ids and
+    re-inserts of deleted ones, self-queries and queries of vectors never
+    stored, deletes of any id issued so far (so deletes repeat), update
+    storms, a flush every ~16 requests and a forced seal every ~50.
+    Returns ``(kind, *args)`` tuples and ``("flush",)`` / ``("seal",)``."""
+    rng = np.random.default_rng(seed)
+    fresh_q = len(vecs) - 64                 # the last 64 rows: queries only
+    ops = []
+    for i in range(n_prefix):
+        ops.append(("insert", i, vecs[i]))
+        if i % 100 == 99:
+            ops += [("flush",), ("seal",)]
+    cur = {i: i for i in range(n_prefix)}    # live id -> row of its version
+    issued, row = n_prefix, n_prefix
+    for _ in range(n_ops):
+        r = rng.random()
+        if r < 0.35:
+            vid = issued if rng.random() < 0.8 else int(rng.integers(issued))
+            issued += vid == issued
+            ops.append(("update" if vid in cur else "insert", vid, vecs[row]))
+            cur[vid], row = row, row + 1
+        elif r < 0.65:
+            vid = list(cur)[int(rng.integers(len(cur)))]
+            q = vecs[cur[vid]] if rng.random() < 0.5 \
+                else vecs[fresh_q + int(rng.integers(64))]
+            ops.append(("query", q, 10))
+        elif r < 0.77:
+            vid = int(rng.integers(issued))
+            cur.pop(vid, None)
+            ops.append(("delete", vid))
+        elif r < 0.92:
+            vid = list(cur)[int(rng.integers(len(cur)))]
+            for _ in range(int(rng.integers(1, 4))):       # update storm
+                ops.append(("update", vid, vecs[row]))
+                cur[vid], row = row, row + 1
+        elif r < 0.98:
+            ops.append(("flush",))
+        else:
+            ops += [("flush",), ("seal",)]
+        check(row < fresh_q, "stream_ops ran out of vectors")
+    return ops + [("flush",)]
+
+
+def run_stream_trace(device, proj, cfg, ops, ordering, cold_dir=None):
+    """``ops`` through a StreamEngine over a fresh index on ``device``.
+    Returns (query answers, host state, state leaves) as
+    :func:`compare_traces` reads them; the host state holds every ack,
+    the engine's stats and flag counters, the sync count and the logs."""
+    idx = PFOIndex(cfg, device=device, proj=proj, cold_dir=cold_dir)
+    eng = StreamEngine(idx, StreamConfig(max_batch=64, min_batch=8,
+                                         default_k=10, ordering=ordering))
+    eng.warmup()
+    results = {}
+    tickets = []
+    for op in ops:
+        if op[0] == "flush":
+            results.update(eng.flush())
+        elif op[0] == "seal":
+            eng.seal()
+        else:
+            tickets.append(getattr(eng, op[0])(*op[1:]))
+    answers = [results[t] for t in tickets if not isinstance(results[t], str)]
+    counters = eng.obs.snapshot()["counters"]
+    host = dict(acks=[results[t] for t in tickets
+                      if isinstance(results[t], str)],
+                stats=eng.stats(), events=eng.events, syncs=idx.sync_count,
+                maint=idx.maintenance_log, flags=idx._flags,
+                flag_fired={k: v for k, v in counters.items()
+                            if k.startswith("stream.flag_fired")})
+    return answers, host, convert.state_to_numpy(idx.state)
+
+
+def strict_equals_per_request(proj, cfg, vecs):
+    """The JAX package's equivalence trace on the card: a strict-order
+    engine against the same requests as PFOIndex calls, run by run, on a
+    second card index: ids and distances bit-identical."""
+    eng = StreamEngine(PFOIndex(cfg, device=DEVICE, proj=proj),
+                       StreamConfig(max_batch=64, min_batch=8,
+                                    ordering="strict"))
+    ref_idx = PFOIndex(cfg, device=DEVICE, proj=proj)
+    for i in range(100):
+        eng.insert(i, vecs[i])
+    q1 = [eng.query(vecs[i], k=5) for i in range(10)]
+    for i in range(5):
+        eng.delete(i)
+    for i in range(5, 8):
+        eng.update(i, vecs[100 + i])
+    q2 = [eng.query(vecs[100 + i], k=5) for i in range(5, 8)]
+    res = eng.flush()
+    ref_idx.insert(np.arange(100, dtype=np.int32), vecs[:100])
+    r1 = ref_idx.query(vecs[:10], k=5)
+    ref_idx.delete(np.arange(5, dtype=np.int32))
+    ref_idx.update(np.arange(5, 8, dtype=np.int32), vecs[105:108])
+    r2 = ref_idx.query(vecs[105:108], k=5)
+    n = 0
+    for (ids, dists), tickets in ((r1, q1), (r2, q2)):
+        for row, t in enumerate(tickets):
+            check(np.array_equal(res[t][0], ids[row])
+                  and np.array_equal(res[t][1], dists[row]),
+                  "strict engine on the card differs from PFOIndex calls")
+            n += 1
+    return n
+
+
+def phase_stream_trace(seed: int):
+    """A small interleaved stream through the StreamEngine on the CPU and
+    on the card, both orderings, on the hot trace config and on a
+    spilling cold one: answers, acks, stats, flag counters, syncs and
+    every integer leaf equal, distances within DIST_TOL."""
+    out = {}
+    t0 = time.perf_counter()
+    for name, cfg in (("hot", small_config()),
+                      ("cold", cold_trace_config())):
+        proj = PFOIndex(cfg, seed=seed, device="cpu").state.proj
+        vecs = safe_vectors(proj, cfg, 900, seed + 2)
+        for ordering, n_ops in (("strict", 100), ("window", 200)):
+            ops = stream_ops(vecs, seed + 3, 400, n_ops)
+            with tempfile.TemporaryDirectory() as tmp:
+                runs = [run_stream_trace(dev, proj, cfg, ops, ordering,
+                                         f"{tmp}/{dev}" if name == "cold"
+                                         else None)
+                        for dev in ("cpu", DEVICE)]
+            what = f"stream trace {name} {ordering}"
+            n_int, max_d = compare_traces(*runs, what)
+            st = runs[1][1]["stats"]
+            check(st["seals"] >= 2 and (st["spills"] if name == "cold"
+                                        else st["merges"]) >= 1,
+                  f"{what} must seal twice and merge (spill, cold): {st}")
+            out[f"{name}_{ordering}"] = dict(
+                requests=st["requests"], rounds=st["rounds"],
+                rounds_by_kind=st["rounds_by_kind"],
+                readbacks=st["readbacks"], seals=st["seals"],
+                merges=st["merges"], spills=st["spills"],
+                integer_leaves=n_int, max_dist_err=max_d)
+    cfg = small_config()
+    proj = PFOIndex(cfg, seed=seed, device="cpu").state.proj
+    n_strict = strict_equals_per_request(
+        proj, cfg, safe_vectors(proj, cfg, 150, seed + 4))
+    emit(phase="stream_trace", equal=True, traces=out,
+         strict_answers_equal_to_pfoindex_calls=n_strict,
+         s=time.perf_counter() - t0)
+
+
+# ----------------------------------------------------------------------
+# phase 5: the hot main path at a realistic size
 # ----------------------------------------------------------------------
 def exact_oracle(cfg, ids, vecs, q):
     """Exact top-11 of each query among (ids, vecs) through ``BruteForce``,
@@ -714,12 +881,379 @@ def phase_main(args):
                oracle_launches=oracle_launches["pair_dist"],
                oracle_queries_per_s=nq / t_oracle,
                inserts_per_s=n / t_ins, queries_per_s=nq / t_q,
-               candidates_per_query=n_cand, proj=idx.state.proj)
+               candidates_per_query=n_cand, proj=idx.state.proj,
+               dead=dead)
     return idx, ranked, launches, hot
 
 
 # ----------------------------------------------------------------------
-# phase 5: the paper's comparators on the hot path's items and queries
+# phase 6: the stream engine at glove-100 width, on the hot path's index
+# ----------------------------------------------------------------------
+STREAM_WARM = 1024          # requests before the measured leg
+STREAM_REQUESTS = 32768     # the measured leg
+STREAM_PER_REQUEST = 2048   # the same stream, one PFOIndex call a request
+STREAM_FLUSH = 256          # requests a window (flush_every)
+STREAM_MIX = (0.5, 0.25, 0.125, 0.125)  # query / insert / delete / update
+STREAM_NOISE = 0.05         # a query's (or write's) noise a coordinate
+STREAM_SELF = 0.25          # queries that are a live id's own vector
+SYNC_WARNING = "synchronizing CUDA operation"
+
+
+def stream_workload(hot: dict, hot_ids: np.ndarray, n_req: int, seed: int):
+    """``benchmarks/streaming.py``'s ``make_workload`` at the hot path's
+    width, over its items: noisy copies of stored vectors, queried (a
+    STREAM_SELF share of the queries are live ids' own vectors instead),
+    inserted under fresh ids from ITEMS up, or written by updates of the
+    hot items; deletes draw from every id issued so far, so they repeat.
+    Returns the requests as (kind, id, table row, exact id) and the
+    vector table on the card (the items' rows, then the stream's)."""
+    ids_np = hot["ids"].cpu().numpy()
+    n = len(ids_np)
+    rng = np.random.default_rng(seed)
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    src = torch.randint(0, n, (n_req,), generator=g, device=DEVICE)
+    noisy = hot["vecs"][src] + STREAM_NOISE * torch.randn(
+        (n_req, hot["vecs"].shape[1]), generator=g, device=DEVICE)
+    table = torch.cat([hot["vecs"], noisy])
+    row_of = np.full(n + n_req, -1, np.int64)
+    row_of[ids_np] = np.arange(n)
+    alive = np.zeros(n + n_req, bool)
+    alive[ids_np] = True
+    alive[hot["dead"].cpu().numpy()] = False
+    self_pool = [int(i) for i in hot_ids if alive[i]]
+    kinds = rng.choice(4, size=n_req, p=STREAM_MIX)
+    reqs, next_id = [], n
+    for i, kd in enumerate(kinds):
+        if kd == 0:
+            j = self_pool[int(rng.integers(len(self_pool)))]
+            if rng.random() < STREAM_SELF and alive[j]:
+                reqs.append(("query", -1, int(row_of[j]), j))
+            else:
+                reqs.append(("query", -1, n + i, None))
+        elif kd == 1:
+            reqs.append(("insert", next_id, n + i, None))
+            row_of[next_id], alive[next_id] = n + i, True
+            self_pool.append(next_id)
+            next_id += 1
+        elif kd == 2:
+            vid = int(rng.integers(0, next_id))
+            reqs.append(("delete", vid, -1, None))
+            alive[vid] = False
+        else:
+            vid = int(hot_ids[int(rng.integers(len(hot_ids)))])
+            reqs.append(("update", vid, n + i, None))
+            row_of[vid], alive[vid] = n + i, True
+    return reqs, table
+
+
+def as_calls(reqs, host_rows: dict):
+    """Requests as ``drive`` tuples: (kind, *args)."""
+    out = []
+    for kind, vid, row, _ in reqs:
+        if kind == "query":
+            out.append(("query", host_rows[row], 10))
+        elif kind == "delete":
+            out.append(("delete", vid))
+        else:
+            out.append((kind, vid, host_rows[row]))
+    return out
+
+
+class StreamOracle:
+    """The window-mode oracle of ``tests/test_stream_engine.py``'s
+    ``_check_query``, on the card: every window's writes land in order,
+    then each of its queries is held to the live ids' current versions.
+    No deleted id, every distance within ORACLE_TOL of the true one, the
+    answers sorted, a self-query first unless ``cut_criterion`` says the
+    ranking budget cut its id."""
+
+    ORACLE_TOL = 1e-4
+
+    def __init__(self, hot: dict, n_req: int, table: torch.Tensor):
+        ids_np = hot["ids"].cpu().numpy()
+        n = len(ids_np)
+        self.table = table
+        self.row_of = np.full(n + n_req, -1, np.int64)
+        self.row_of[ids_np] = np.arange(n)
+        self.alive = np.zeros(n + n_req, bool)
+        self.alive[ids_np] = True
+        self.alive[hot["dead"].cpu().numpy()] = False
+        self.q_rows, self.a_rows, self.a_live, self.a_d = [], [], [], []
+        self.n_self = self.self_rank0 = self.self_cut = 0
+        self.n_queries = self.n_answered = 0
+
+    def window(self, reqs, results, cids_rounds):
+        """One window: its requests in order, the engine's results by
+        request, and the candidate ids of its query rounds."""
+        for kind, vid, row, _ in reqs:
+            if kind == "delete":
+                self.alive[vid] = False
+            elif kind != "query":
+                self.row_of[vid], self.alive[vid] = row, True
+        qi = 0
+        for (kind, _, row, exact), res in zip(reqs, results):
+            if kind != "query":
+                check(res == "ok", f"a {kind} was not acknowledged: {res}")
+                continue
+            ids, d = res
+            live = ids >= 0
+            check(len(set(ids[live].tolist())) == int(live.sum()),
+                  "an answer repeats an id")
+            check(self.alive[ids[live]].all(), "a deleted id came back")
+            check((np.diff(d[live]) >= -1e-6).all(), "distances not sorted")
+            self.q_rows.append(row)
+            self.a_rows.append(np.where(live, self.row_of[np.maximum(ids, 0)],
+                                        0))
+            self.a_live.append(live)
+            self.a_d.append(d)
+            self.n_queries += 1
+            self.n_answered += int(live.any())
+            if exact is not None and self.alive[exact] \
+                    and self.row_of[exact] == row:
+                self.n_self += 1
+                if ids[0] == exact:
+                    check(d[0] < 1e-5, "self distance not 0")
+                    self.self_rank0 += 1
+                else:
+                    cids = cids_rounds[qi // STREAM_FLUSH][
+                        qi % STREAM_FLUSH].cpu().numpy()
+                    check(cut_criterion(np.asarray([exact]), ids[None],
+                                        cids[None]).sum() == 0,
+                          "a self-query missed rank 0 without its id being "
+                          "cut by the ranking budget")
+                    self.self_cut += 1
+            qi += 1
+
+    def distances(self) -> float:
+        """Every reported distance against the true one to the answered
+        id's current version (float64, on the card); the largest error."""
+        qr = torch.as_tensor(np.asarray(self.q_rows), device=DEVICE)
+        ar = torch.as_tensor(np.stack(self.a_rows), device=DEVICE)
+        live = torch.as_tensor(np.stack(self.a_live), device=DEVICE)
+        got = torch.as_tensor(np.stack(self.a_d), device=DEVICE).double()
+        worst = 0.0
+        for s in range(0, qr.numel(), 4096):
+            q = self.table[qr[s:s + 4096]].double()
+            x = self.table[ar[s:s + 4096]].double()
+            q = q / q.norm(dim=-1, keepdim=True)
+            x = x / x.norm(dim=-1, keepdim=True)
+            true = 1.0 - torch.einsum("qd,qkd->qk", q, x)
+            err = torch.where(live[s:s + 4096],
+                              (got[s:s + 4096] - true).abs(), 0.0)
+            worst = max(worst, float(err.max()))
+        check(worst <= self.ORACLE_TOL, f"a distance is {worst} from the "
+              f"true one to the id's current version (> {self.ORACLE_TOL})")
+        return worst
+
+
+def hist(snap: dict, name: str) -> dict:
+    h = snap["histograms"].get(name, {})
+    return {k: h.get(k) for k in ("count", "mean", "p50", "p99")}
+
+
+def phase_stream(args, idx, hot: dict, rows: list):
+    """The stream engine over the hot path's 500,000-item index (reused,
+    so no second index is built): a STREAM_WARM warm prefix, then
+    STREAM_REQUESTS requests of the streaming benchmark's mix in windows
+    of STREAM_FLUSH, with the launch counts set to 0 just before and read
+    just after, the flushes under ``torch.cuda.set_sync_debug_mode
+    ("warn")``; one more window traced; a 256-query window whose
+    lsh_hash and gather_rank inputs are tapped, held and timed; then
+    STREAM_PER_REQUEST requests of the same stream as PFOIndex calls."""
+    import warnings
+    t_phase = time.perf_counter()
+    cfg = idx.cfg
+    n = hot["ids"].shape[0]
+    # the hot items: live ids still in the hot MainTable forest
+    tail = hot["ids"][max(0, n - 4 * 4096):]
+    _, in_hot = index_mod.forest_lookup_masked(
+        idx.state.main_forest, *reversed(index_mod.main_table_keys(tail, cfg)),
+        tail, index_mod.main_tree_config(cfg))
+    hot_ids = np.setdiff1d(tail[in_hot].cpu().numpy(),
+                           hot["dead"].cpu().numpy())
+    n_req = STREAM_WARM + STREAM_REQUESTS + STREAM_FLUSH + STREAM_PER_REQUEST
+    reqs, table = stream_workload(hot, hot_ids, n_req, args.seed + 11)
+    need = sorted({r[2] for r in reqs if r[2] >= 0})
+    host_rows = dict(zip(need, table[torch.as_tensor(need, device=DEVICE)]
+                         .cpu().numpy()))
+    calls = as_calls(reqs, host_rows)
+    oracle = StreamOracle(hot, n_req, table)
+
+    eng = StreamEngine(idx, StreamConfig(max_batch=256, min_batch=8,
+                                         default_k=10, ordering="window"))
+    t0 = time.perf_counter()
+    eng.warmup()
+    warmup_s = time.perf_counter() - t0
+    cids_rounds: list = []         # candidate ids of each query round
+
+    def keep(state, qvecs, cids, *rest, **kw):
+        cids_rounds.append(cids)
+
+    def checked(lo: int, hi: int, run):
+        """``run(calls[lo:hi])`` (-> {ticket: result}) with the query
+        rounds' candidates tapped, then its windows through the oracle."""
+        cids_rounds.clear()
+        with tapped(index_mod, "_rank_candidates", keep):
+            results = run(calls[lo:hi])
+        flat = [results[t] for t in sorted(results)]
+        check(len(flat) == hi - lo, "a request went unanswered")
+        qr = 0
+        for w in range(lo, hi, STREAM_FLUSH):
+            win = reqs[w:w + STREAM_FLUSH]
+            k = -(-sum(r[0] == "query" for r in win) // STREAM_FLUSH)
+            oracle.window(win, flat[w - lo:w - lo + len(win)],
+                          cids_rounds[qr:qr + k])
+            qr += k
+        check(qr == len(cids_rounds), "query rounds do not match windows")
+
+    def windows(part):
+        return drive(eng, part, flush_every=STREAM_FLUSH)
+
+    checked(0, STREAM_WARM, lambda part: windows(part)[0])
+
+    # the measured leg
+    probes = [0]
+    real_round_flags = index_mod.round_flags
+
+    def counted_round_flags(*a_, **kw):
+        probes[0] += 1
+        return real_round_flags(*a_, **kw)
+
+    leg = {}
+
+    def measured(part):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                results, leg["s"], leg["lat"] = windows(part)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        leg["syncs"] = sum(SYNC_WARNING in str(w.message) for w in caught)
+        return results
+
+    a, b = STREAM_WARM, STREAM_WARM + STREAM_REQUESTS
+    eng.set_obs(Obs())
+    before = eng.stats()
+    index_mod.round_flags = counted_round_flags
+    torch.cuda.synchronize()
+    ops.reset_launches()                      # counts start here ...
+    try:
+        checked(a, b, measured)
+    finally:
+        index_mod.round_flags = real_round_flags
+    launches = dict(ops.LAUNCHES)             # ... and stop here
+    after = eng.stats()
+    snap = eng.obs.snapshot()
+    secs, lat, syncs = leg["s"], leg["lat"], leg["syncs"]
+    rounds = after["rounds"] - before["rounds"]
+    readbacks = after["readbacks"] - before["readbacks"]
+    q_rounds = (after["rounds_by_kind"]["query"]
+                - before["rounds_by_kind"]["query"])
+    check(readbacks == rounds + probes[0],
+          f"readbacks {readbacks} != rounds {rounds} + flag probes "
+          f"{probes[0]}")
+    check(launches["lsh_hash"] > 0 and launches["gather_rank"] > 0,
+          f"a kernel of the stream path was never launched: {launches}")
+
+    # one more window, traced
+    a, b = b, b + STREAM_FLUSH
+    profile = {}
+
+    def traced_window(part):
+        out = {}
+        profile.update(device_profile(lambda: out.update(windows(part)[0])))
+        return out
+
+    checked(a, b, traced_window)
+    max_err = oracle.distances()
+
+    # a window of 256 self-queries: one query round at the 256-row bucket,
+    # its lsh_hash and gather_rank inputs tapped
+    live_hot = [int(i) for i in hot_ids if oracle.alive[i]][:256]
+    check(len(live_hot) == 256, "too few live hot items for the tap window")
+    qv = table[torch.as_tensor(oracle.row_of[live_hot], device=DEVICE)]
+    seen = {}
+    with tapped(ops, "lsh_hash", lambda x, a_, M=32: seen.setdefault(
+            "lsh_hash", (x, a_))), \
+            tapped(ops, "gather_rank", lambda q, st, sl, va, metric,
+                   staging=None: seen.setdefault(
+                       "gather_rank", (q, st, sl, va, metric))):
+        tap_res = drive(eng, [("query", v, 10) for v in qv.cpu().numpy()],
+                        flush_every=STREAM_FLUSH)[0]
+    tap_ids = np.stack([tap_res[t][0] for t in sorted(tap_res)])
+    check(tap_ids.shape == (256, 10) and (tap_ids[:, 0] >= 0).all(),
+          "the tapped window's answers")
+    x, a_proj = seen["lsh_hash"]
+    check(x.shape[0] == 256, f"lsh_hash tapped at {x.shape[0]} rows")
+    hash_row = lsh_hash_at(x, a_proj)
+    rank_row = gather_rank_at(*seen["gather_rank"])
+    check(rank_row["shape"][0] == 256, "gather_rank tapped off the bucket")
+    for row, name, stream_row in ((rows[0], "lsh_hash", hash_row),
+                                  (rows[1], "gather_rank", rank_row)):
+        check(row["name"] == name, f"kernel row {row['name']} != {name}")
+        row["launches_by_path"] = dict(main_path=row["launches"],
+                                       stream=launches[name])
+        row["stream_bucket"] = dict(stream_row, launches=launches[name])
+    del seen, x, a_proj
+
+    # the per-request leg: the same stream, one PFOIndex call a request
+    a, b = b, b + STREAM_PER_REQUEST
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for kind, *rest in calls[a:b]:
+        if kind == "query":
+            idx.query(rest[0][None], rest[1])
+        elif kind == "delete":
+            idx.delete(np.asarray([rest[0]], np.int32))
+        else:
+            getattr(idx, kind)(np.asarray([rest[0]], np.int32), rest[1][None])
+    torch.cuda.synchronize()
+    per_req_s = time.perf_counter() - t0
+
+    lat_ms = np.asarray(lat) * 1e3
+    engine_rps = STREAM_REQUESTS / secs
+    per_request_rps = STREAM_PER_REQUEST / per_req_s
+    emit(phase="stream", items=n, dim=cfg.dim,
+         config=dict(max_batch=256, min_batch=8, default_k=10,
+                     ordering="window", flush_every=STREAM_FLUSH),
+         mix=dict(zip(("query", "insert", "delete", "update"), STREAM_MIX)),
+         warm_requests=STREAM_WARM, requests=STREAM_REQUESTS,
+         warmup_s=warmup_s, engine_s=secs, engine_rps=engine_rps,
+         per_request_requests=STREAM_PER_REQUEST, per_request_s=per_req_s,
+         per_request_rps=per_request_rps,
+         speedup=engine_rps / per_request_rps,
+         flush_ms=dict(p50=float(np.percentile(lat_ms, 50)),
+                       p99=float(np.percentile(lat_ms, 99)),
+                       mean=float(lat_ms.mean()), flushes=len(lat_ms)),
+         e2e_ms={k: hist(snap, f"req.e2e_ms{{kind={k}}}")
+                 for k in ("query", "insert", "delete", "update")},
+         split_ms={p: hist(snap, f"req.{p}_ms")
+                   for p in ("queue_wait", "batch_wait", "service")},
+         rounds=rounds,
+         rounds_by_kind={k: after["rounds_by_kind"][k]
+                         - before["rounds_by_kind"][k]
+                         for k in after["rounds_by_kind"]},
+         readbacks=readbacks, flag_probes=probes[0],
+         readbacks_per_round=readbacks / rounds,
+         seals=after["seals"] - before["seals"],
+         merges=after["merges"] - before["merges"],
+         launches={k: launches[k] for k in ("lsh_hash", "gather_rank")},
+         sync_warnings=syncs, query_pickups=q_rounds,
+         implicit_syncs=syncs - readbacks - q_rounds,
+         implicit_syncs_per_round=(syncs - readbacks - q_rounds)
+         / (rounds + q_rounds),
+         oracle=dict(queries=oracle.n_queries, answered=oracle.n_answered,
+                     self_queries=oracle.n_self,
+                     self_rank0=oracle.self_rank0,
+                     self_cut_by_budget=oracle.self_cut,
+                     max_dist_err=max_err),
+         traced_flush=profile, stats=idx.stats(),
+         s=time.perf_counter() - t_phase)
+
+
+# ----------------------------------------------------------------------
+# phase 7: the paper's comparators on the hot path's items and queries
 # ----------------------------------------------------------------------
 def run_comparator(index, ids, vecs, q, batch: int):
     """Insert (ids, vecs) in batches and answer q once, with the launch
@@ -865,7 +1399,7 @@ def phase_baselines(args, hot):
 
 
 # ----------------------------------------------------------------------
-# phase 6: the cold path at glove-100 width
+# phase 8: the cold path at glove-100 width
 # ----------------------------------------------------------------------
 COLD_TOMBSTONES = 1 << 17
 COLD_BUDGET = 256
@@ -1044,7 +1578,7 @@ def phase_cold_main(args):
 
 
 # ----------------------------------------------------------------------
-# phase 7: each kernel against its plain version, timed, with its bound
+# phase 9: each kernel against its plain version, timed, with its bound
 # ----------------------------------------------------------------------
 def hash_flips(x, a):
     """lsh_hash's bits on the card against its plain version and against
@@ -1064,6 +1598,60 @@ def hash_flips(x, a):
     return far, int((diff & near).sum())
 
 
+def lsh_hash_at(x, a) -> dict:
+    """lsh_hash on one batch of the path's vectors, through
+    ``lsh_hash_cuda``: its bit flips against the plain version, its
+    times (in turns with ``torch.matmul``) and its bound."""
+    far, near = hash_flips(x, a)
+    n = x.shape[0]
+    check(far == 0, f"lsh_hash: {far} bit flips away from zero at {n} rows")
+    d, p = a.shape
+    b_ms, b_by = bound_ms(4 * d * p + 4 * n * d + 8 * n * (p // 32),
+                          2 * n * d * p)
+    plain = cuda_ms(lambda: ref.ref_lsh_hash(x, a))
+    ms, lib_ms = paired_ms(lambda: lsh_hash_cuda(x, a),
+                           lambda: torch.matmul(x, a))
+    return dict(shape=[n, d, p], far_flips=far, near_zero_flips=near, ms=ms,
+                kernel_ms=kernel_ms(lambda: lsh_hash_cuda(x, a)),
+                plain_ms=plain, library_ms=lib_ms,
+                library_kernel_ms=kernel_ms(lambda: torch.matmul(x, a)),
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def gather_rank_at(q, store, slots, valid, metric: str) -> dict:
+    """gather_rank on one query round's own ranking inputs, held against
+    its plain version, with its times through ``gather_rank_cuda`` and
+    its bound; the library call ranks the pre-gathered block."""
+    slots = slots.to(torch.int32)
+    got = ops.gather_rank(q, store, slots, valid, metric)
+    plain = ref.ref_gather_rank(q, store, slots, valid, metric)
+    check(torch.equal(torch.isinf(got), torch.isinf(plain)),
+          "gather_rank: +inf pattern differs")
+    fin = torch.isfinite(plain)
+    err = float((got[fin] - plain[fin]).abs().max()) if fin.any() else 0.0
+    torch.testing.assert_close(got, plain, rtol=RANK_TOL, atol=RANK_TOL)
+    qn = q / q.norm(dim=1, keepdim=True).clamp_min(1e-9)
+    nq, c = slots.shape
+    d = store.shape[1]
+    angular = metric == "angular"
+    n_valid = int(valid.sum())
+    n_rows = int(torch.unique(slots[valid]).numel())   # store rows needed
+    b_ms, b_by = bound_ms(4 * (nq * d + n_rows * d + 2 * nq * c) + nq * c,
+                          4 * n_valid * d)
+    block = store[slots.long()]                       # (Q, C, d) gathered
+    return dict(
+        max_abs_err=err, shape=[nq, c, d], valid_candidates=n_valid,
+        distinct_rows=n_rows,
+        ms=cuda_ms(lambda: gather_rank_cuda(qn, store, slots, valid,
+                                            angular)),
+        kernel_ms=kernel_ms(lambda: gather_rank_cuda(qn, store, slots, valid,
+                                                     angular)),
+        plain_ms=cuda_ms(lambda: ref.ref_gather_rank(q, store, slots, valid,
+                                                     metric)),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_ms(lambda: torch.bmm(block, qn[:, :, None])))
+
+
 def phase_kernels(idx, ranked, launches):
     cfg, st = idx.cfg, idx.state
     rows = []
@@ -1071,25 +1659,9 @@ def phase_kernels(idx, ranked, launches):
     # lsh_hash at the insert batch's shape, (4096, d) x (d, L*32), and at
     # the query batch's, (1024, d) x (d, L*32), through lsh_hash_cuda
     a = st.proj["table_proj"].contiguous()
-    shapes = []
-    for n, seed in ((4096, 12345), (1024, 12346)):
-        x = clustered(n, cfg.dim, seed, st.store.data.device)
-        far, near = hash_flips(x, a)
-        check(far == 0, f"lsh_hash: {far} bit flips away from zero at "
-              f"{n} rows")
-        d, p = a.shape
-        b_ms, b_by = bound_ms(4 * d * p + 4 * n * d + 8 * n * (p // 32),
-                              2 * n * d * p)
-        plain = cuda_ms(lambda: ref.ref_lsh_hash(x, a))
-        ms, lib_ms = paired_ms(lambda: lsh_hash_cuda(x, a),
-                               lambda: torch.matmul(x, a))
-        shapes.append(dict(
-            shape=[n, d, p], far_flips=far, near_zero_flips=near, ms=ms,
-            kernel_ms=kernel_ms(lambda: lsh_hash_cuda(x, a)),
-            plain_ms=plain, library_ms=lib_ms,
-            library_kernel_ms=kernel_ms(lambda: torch.matmul(x, a)),
-            bound_ms=b_ms, bound_by=b_by))
-    insert, query = shapes
+    insert, query = (lsh_hash_at(clustered(n, cfg.dim, seed,
+                                           st.store.data.device), a)
+                     for n, seed in ((4096, 12345), (1024, 12346)))
     rows.append(dict(
         name="lsh_hash", route="cuda", design="3xtf32-mma",
         source="src/repro_torch/kernels/csrc/lsh_hash.cu",
@@ -1107,41 +1679,21 @@ def phase_kernels(idx, ranked, launches):
     # gather_rank on the hot query's own ranking inputs
     q, store, valid = ranked["qvecs"], ranked["store"], ranked["valid"]
     slots = ranked["slots"].to(torch.int32)
-    got = ops.gather_rank(q, store, slots, valid, cfg.metric)
-    plain = ref.ref_gather_rank(q, store, slots, valid, cfg.metric)
-    check(torch.equal(torch.isinf(got), torch.isinf(plain)),
-          "gather_rank: +inf pattern differs")
-    fin = torch.isfinite(plain)
-    err = float((got[fin] - plain[fin]).abs().max()) if fin.any() else 0.0
-    torch.testing.assert_close(got, plain, rtol=RANK_TOL, atol=RANK_TOL)
-    qn = q / q.norm(dim=1, keepdim=True).clamp_min(1e-9)
-    nq, c = slots.shape
-    n_valid = int(valid.sum())
-    n_rows = int(torch.unique(slots[valid]).numel())   # store rows needed
-    ms = cuda_ms(lambda: gather_rank_cuda(qn, store, slots, valid, True))
-    k_ms = kernel_ms(lambda: gather_rank_cuda(qn, store, slots, valid, True))
-    b_ms, b_by = bound_ms(4 * (nq * d + n_rows * d + 2 * nq * c) + nq * c,
-                          4 * n_valid * d)
+    row = gather_rank_at(q, store, slots, valid, cfg.metric)
     # a yardstick: the same reads folded into 20,000 rows (8 MB), so all
     # but the first touch of each hit the L2 and every read still crosses
     # from the L2 to the SMs
+    qn = q / q.norm(dim=1, keepdim=True).clamp_min(1e-9)
     pool = slots.remainder(L2_POOL_ROWS)
     pool_ms = cuda_ms(lambda: gather_rank_cuda(qn, store, pool, valid, True))
-    block = store[slots.long()]                       # (Q, C, d) gathered
     rows.append(dict(
         name="gather_rank", route="cuda", design=GATHER_DESIGN,
         source="src/repro_torch/kernels/csrc/gather_rank.cu",
         replaces="src/repro/kernels/gather_rank.py:112",
-        launches=launches["gather_rank"], max_abs_err=err,
-        shape=[nq, c, d], valid_candidates=n_valid, distinct_rows=n_rows,
-        ms=ms, kernel_ms=k_ms, l2_pool_ms=pool_ms,
+        launches=launches["gather_rank"], **row, l2_pool_ms=pool_ms,
         timed="through gather_rank_cuda; kernel_ms: torch.profiler's "
               "kernel time; l2_pool_ms: slots folded into "
-              f"{L2_POOL_ROWS} rows",
-        plain_ms=cuda_ms(lambda: ref.ref_gather_rank(
-            q, store, slots, valid, cfg.metric)),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=cuda_ms(lambda: torch.bmm(block, qn[:, :, None]))))
+              f"{L2_POOL_ROWS} rows"))
     return rows
 
 
@@ -1355,8 +1907,10 @@ def main() -> int:
          ptxas=_build.ptxas_report())
     phase_trace(args.seed)
     phase_cold_trace(args.seed)
+    phase_stream_trace(args.seed)
     idx, ranked, launches, hot = phase_main(args)
     rows = phase_kernels(idx, ranked, launches)
+    phase_stream(args, idx, hot, rows)
     del idx, ranked
     torch.cuda.empty_cache()
     hot_pair = pair_dist_at(hot["oracle_in"])

@@ -58,7 +58,7 @@ from .hash_tree import TreeConfig, forest_lookup_masked
 from .lsh import main_table_keys
 from .membership import member_sorted
 from .snapshots import INT_MAX, PAD_KEY
-from .store import DenseStore, dense_free
+from .store import DenseStore, dense_free, dense_owned
 
 
 # ======================================================================
@@ -318,10 +318,10 @@ def spill_device(lsh_snaps: snap_mod.SnapshotSet,
 
     "Sole custody" (the ``cur`` mask): the entry's id has no newer copy
     in the hot MainTable forest or the remaining ring, no pending
-    tombstone, and its slot is still live.  Only those entries get a
-    real payload row and a freed slot; stale entries keep a zero
-    payload (they are never ranked, and their slots were freed by the
-    delete or update that superseded them)."""
+    tombstone, and its slot is still live and still the id's.  Only
+    those entries get a real payload row and a freed slot; stale entries
+    keep a zero payload (they are never ranked, and their slots were
+    freed by the delete or update that superseded them)."""
     lsh2, pl = snap_mod.pop_oldest(lsh_snaps, lsh_cfg)
     main2, pm = snap_mod.pop_oldest(snap_mod.one(main_snaps), main_cfg)
     main2 = snap_mod.unbatch(main2)
@@ -334,7 +334,7 @@ def spill_device(lsh_snaps: snap_mod.SnapshotSet,
     in_ring = member_sorted(ids, main2.ids)
     dead = member_sorted(ids, tombs)
     safe = vals.to(torch.int64).clamp(0, n_store - 1)
-    live = store.live[safe] & (vals >= 0)
+    live = dense_owned(store, safe, ids) & (vals >= 0)
     cur = (ids >= 0) & ~hot_found & ~in_ring & ~dead & live
     pm["payload"] = torch.where(cur[:, None], store.data[safe], 0.0)
     pm["cur"] = cur
@@ -403,7 +403,7 @@ def ring_payload_drain(main_snaps: snap_mod.SnapshotSet, store: DenseStore,
     dead = member_sorted(ids, tombs)
     n_store = store.data.shape[0]
     safe = vals.to(torch.int64).clamp(0, n_store - 1)
-    live = store.live[safe] & (vals >= 0)
+    live = dense_owned(store, safe, ids) & (vals >= 0)
     cur = valid & newest & ~hot_found & ~dead & live
     payload = torch.where(cur[:, None], store.data[safe], 0.0)
     store2 = dense_free(store, vals, cur)

@@ -207,7 +207,8 @@ def insert_step(state: PFOState, ids: torch.Tensor, vecs: torch.Tensor,
     """
     L = cfg.L
     need_alloc = (slots_in == -2) & main_active
-    store, new_slots, alloc_ok = dense_alloc(state.store, vecs, need_alloc)
+    store, new_slots, alloc_ok = dense_alloc(state.store, vecs, need_alloc,
+                                            ids)
     slots = torch.where(need_alloc & alloc_ok, new_slots, slots_in)
     have_slot = slots >= 0
 
@@ -282,8 +283,8 @@ def _main_lookup(state: PFOState, ids: torch.Tensor, cfg: PFOConfig):
     mh, mtree = main_table_keys(ids, cfg)
     val, found = forest_lookup_masked(state.main_forest, mtree, mh, ids,
                                       main_tree_config(cfg))
-    sval, sfound = snap_mod.lookup_exact(snap_mod.one(state.main_snaps), mh,
-                                         ids, _snap_cfg_main(cfg))
+    sval, sfound = snap_mod.lookup_key_run(
+        snap_mod.one(state.main_snaps), mh, ids, _snap_cfg_main(cfg))
     slot = torch.where(found, val, torch.where(sfound, sval, -1))
     return slot, found | sfound
 
@@ -372,11 +373,15 @@ def _delete_apply(state: PFOState, ids: torch.Tensor, slot: torch.Tensor,
     forest_delete_dispatched(state.main_forest, mh_g, mailbox_ids(mbox, ids),
                              main_tree_config(cfg))
 
+    # a row frees its slot only while the slot is still its id's: a
+    # sealed copy of an id deleted before resolves to the id's old slot,
+    # which another id may hold by now
     if staging is None:
-        store = dense_free(state.store, slot, ok)
+        store = dense_free(state.store, slot, ok, ids)
     else:
         hot_ok = ok & (slot < cfg.store_capacity)
-        store = dense_free(state.store, torch.where(hot_ok, slot, 0), hot_ok)
+        store = dense_free(state.store, torch.where(hot_ok, slot, 0), hot_ok,
+                           ids)
 
     # tombstones cover sealed copies; rows that do not fit stay pending
     want = ok.to(torch.int32)
@@ -434,8 +439,8 @@ def _main_lookup_cold(state: PFOState, ids: torch.Tensor, cfg: PFOConfig,
     mh, mtree = main_table_keys(ids, cfg)
     val, found = forest_lookup_masked(state.main_forest, mtree, mh, ids,
                                       main_tree_config(cfg))
-    sval, sfound = snap_mod.lookup_exact(snap_mod.one(state.main_snaps), mh,
-                                         ids, _snap_cfg_main(cfg))
+    sval, sfound = snap_mod.lookup_key_run(
+        snap_mod.one(state.main_snaps), mh, ids, _snap_cfg_main(cfg))
     cold_ids = torch.where(found | sfound, -1, ids)
     if active is not None:
         cold_ids = torch.where(active, cold_ids, -1)

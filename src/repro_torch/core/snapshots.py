@@ -180,13 +180,56 @@ def probe(snaps: SnapshotSet, hs: torch.Tensor, cfg: PFOConfig):
 def lookup_exact(snaps: SnapshotSet, hs: torch.Tensor, vids: torch.Tensor,
                  cfg: PFOConfig):
     """Exact (key, id) lookups in a batch-of-one ring (MainTable path),
-    newest segment first: (N,) -> (val, found)."""
+    newest segment first: (N,) -> (val, found).
+
+    The JAX package's search: the first ``snap_budget_per_probe`` entries
+    of the key's prefix bucket.  The index searches its MainTable ring
+    with :func:`lookup_key_run` instead."""
     cids, cvals = probe(snaps, hs[None], cfg)
     cids, cvals = cids[0], cvals[0]
     match = (cids >= 0) & (cids == vids[:, None])
     idx = match.to(torch.uint8).argmax(1)                        # first hit
     found = match.any(1)
     val = cvals.gather(1, idx[:, None])[:, 0]
+    return torch.where(found, val, -1), found
+
+
+def lookup_key_run(snaps: SnapshotSet, hs: torch.Tensor, vids: torch.Tensor,
+                   cfg: PFOConfig):
+    """Id lookups in a batch-of-one MainTable ring, newest segment first:
+    (N,) -> (val, found), as :func:`lookup_exact` returns them.
+
+    ``hs`` are the ids' MainTable keys.  A MainTable key is its id's
+    hash, so every copy of an id in a sorted segment lies in the run of
+    entries whose key is the query key, and each segment is searched over
+    the first ``snap_budget_per_probe`` entries from the run's start.
+    :func:`lookup_exact` searches as many entries from the start of the
+    key's prefix bucket, which holds the run: the two agree while a bucket
+    fits the budget, but a bucket outgrows it once a segment holds a few
+    entries a prefix (~120 at 500,000 sealed items and 12 prefix bits).
+    The bucket search then misses an id past the budget, which is neither
+    found nor deleted and comes back once a merge shrinks its bucket, and
+    finds an older copy of an id whose newer copy lies past it."""
+    _, S, cap = snaps.keys.shape
+    n, dev = hs.shape[0], hs.device
+    keys, ids = snaps.keys[0], snaps.ids[0]                      # (S, cap)
+    lo = torch.searchsorted(keys, hs.to(keys.dtype)[None].expand(S, n)
+                            .contiguous())                       # (S, N)
+    pos = lo[..., None] + torch.arange(cfg.snap_budget_per_probe,
+                                       device=dev)               # (S, N, bud)
+    got = ids.gather(1, pos.clamp_max(cap - 1).reshape(S, -1)).reshape(
+        pos.shape)
+    live = (torch.arange(S, device=dev) < snaps.n_snaps[0])[:, None, None]
+    match = live & (pos < cap) & (got >= 0) & (got == vids[:, None])
+    # the newest segment with a hit, then its first hit
+    seg = (match.any(2) * torch.arange(1, S + 1, device=dev)[:, None]
+           ).amax(0) - 1                                         # (N,)
+    found = seg >= 0
+    seg = seg.clamp_min(0)
+    col = torch.arange(n, device=dev)
+    first = match[seg, col].to(torch.uint8).argmax(1)
+    at = (lo[seg, col] + first).clamp_max(cap - 1)
+    val = snaps.vals[0][seg, at]
     return torch.where(found, val, -1), found
 
 

@@ -8,6 +8,13 @@ paper's RECLAIMED_LIST with a single size class.  Slots become
 MainTable ``leaf_val``s, so the allocation order is exactly the JAX
 package's.
 
+Each slot also records the id it was allocated for (``owner``), and a
+free names the ids it frees for: a slot is freed only while it still
+belongs to that id.  A sealed copy of an id that was already deleted
+still resolves to the id's old slot, which another id may hold by now;
+without the owner check a second delete of the id would free that
+other id's slot (the JAX package keeps that defect).
+
 Sparse store — size-classed blocks of a fixed nnz granule; a record
 chains as many blocks as its nonzeros need, taken from a free list.
 
@@ -32,6 +39,10 @@ class DenseStore(NamedTuple):
     free_stack: torch.Tensor  # i32 (capacity,) indices; top grows downward
     free_top: torch.Tensor    # i32 () number of free slots on the stack
     live: torch.Tensor        # bool (capacity,)
+    # i32 (capacity,) id each slot was allocated for.  None: the store
+    # keeps no owners (one converted from the JAX package, which keeps
+    # none), and a free is the JAX package's.
+    owner: torch.Tensor | None = None
 
 
 def dense_init(capacity: int, dim: int, device=None) -> DenseStore:
@@ -41,13 +52,28 @@ def dense_init(capacity: int, dim: int, device=None) -> DenseStore:
                                 device=device),
         free_top=torch.tensor(capacity, dtype=torch.int32, device=device),
         live=torch.zeros((capacity,), dtype=torch.bool, device=device),
+        owner=torch.full((capacity,), -1, dtype=torch.int32, device=device),
     )
 
 
-def dense_alloc(st: DenseStore, vecs: torch.Tensor, mask: torch.Tensor):
+def dense_owned(st: DenseStore, slots: torch.Tensor,
+                ids: torch.Tensor | None = None) -> torch.Tensor:
+    """(N,) bool: slot is live and, where ``ids`` are given and the store
+    keeps owners, still belongs to that id.  Slots must lie in
+    [0, capacity)."""
+    slots = slots.to(torch.int64)
+    live = st.live[slots]
+    if ids is None or st.owner is None:
+        return live
+    return live & (st.owner[slots] == ids.to(torch.int32))
+
+
+def dense_alloc(st: DenseStore, vecs: torch.Tensor, mask: torch.Tensor,
+                ids: torch.Tensor | None = None):
     """Allocate a slot per masked row and write. Returns (st, slots, ok).
 
     slots: (N,) int32, -1 where not allocated (masked out or full).
+    ``ids`` (N,) become the slots' owners where the store keeps them.
     """
     want = mask.to(torch.int32)
     rank = torch.cumsum(want, 0, dtype=torch.int32) - want  # 0-based rank
@@ -56,30 +82,42 @@ def dense_alloc(st: DenseStore, vecs: torch.Tensor, mask: torch.Tensor):
     slots = torch.where(ok, st.free_stack[pos.clamp_min(0).long()], -1)
     masked_put_(st.data, (slots,), vecs.to(st.data.dtype), ok)
     masked_put_(st.live, (slots,), True, ok)
+    if st.owner is not None and ids is not None:
+        # the allocated rows hold distinct slots: each adds (id - old
+        # owner) at its slot and every other row adds 0, so no row races
+        # a real write and no fallback index is read back to the host
+        # (as masked_put_ reads one)
+        at = slots.clamp_min(0).to(torch.int64)
+        st.owner.index_put_((at,), torch.where(
+            ok, ids.to(torch.int32) - st.owner[at], 0), accumulate=True)
     taken = ok.sum(dtype=torch.int32)
     return st._replace(free_top=st.free_top - taken), slots, ok
 
 
-def dense_free(st: DenseStore, slots: torch.Tensor,
-               mask: torch.Tensor) -> DenseStore:
+def dense_free(st: DenseStore, slots: torch.Tensor, mask: torch.Tensor,
+               ids: torch.Tensor | None = None) -> DenseStore:
     """Reclaim slots (push back on the free stack).
 
     Duplicate slots within one batch free once: every row reads the
     pre-update ``live`` bits, so without the first-occurrence mask two
-    rows naming the same slot would push it on the free stack twice."""
+    rows naming the same slot would push it on the free stack twice.
+    With ``ids`` (N,), a row frees its slot only while the slot still
+    belongs to its id (:func:`dense_owned`)."""
     cap = st.data.shape[0]
     n = slots.shape[0]
     dev = slots.device
     slots = slots.to(torch.int64)
-    # rows that are masked out or slotless get distinct out-of-range keys
-    valid = mask & (slots >= 0)
+    # rows that are masked out, slotless or not the slot's owner get
+    # distinct out-of-range keys (a stale row must not shadow the owner's)
+    valid = mask & (slots >= 0) & dense_owned(st, slots.clamp(0, cap - 1),
+                                              ids)
     key = torch.where(valid, slots, cap + torch.arange(n, device=dev))
     s, order = torch.sort(key, stable=True)
     dup_sorted = torch.cat([torch.zeros(1, dtype=torch.bool, device=dev),
                             s[1:] == s[:-1]])
     first = torch.zeros(n, dtype=torch.bool, device=dev)
     first[order] = ~dup_sorted
-    ok = valid & st.live[slots.clamp_min(0)] & first
+    ok = valid & first
     want = ok.to(torch.int32)
     rank = torch.cumsum(want, 0, dtype=torch.int32) - want
     masked_put_(st.free_stack, (st.free_top + rank,), slots, ok)

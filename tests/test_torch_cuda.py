@@ -556,3 +556,131 @@ def test_sparse_store_writes_reads_and_frees_on_card():
                                                                   val)
         for name, want in host._asdict().items():
             assert torch.equal(getattr(card, name).cpu(), want), name
+
+
+# ----------------------------------------------------------------------
+# the stream engine on the card
+# ----------------------------------------------------------------------
+def _stream_cfg(cold: bool):
+    from repro_torch.core import PFOConfig
+    kw = dict(dim=16, L=3, C=2, m=2, l=16, t=4, max_nodes_per_tree=64,
+              max_leaves_per_tree=128, main_m=3, main_max_nodes_per_tree=128,
+              main_max_leaves_per_tree=1024, store_capacity=8192,
+              max_candidates_per_probe=16, max_candidates_total=192,
+              max_snapshots=3, max_tombstones=64, bloom_bits=1 << 12,
+              snap_prefix_bits=8, snap_budget_per_probe=16)
+    if cold:
+        kw.update(max_nodes_per_tree=48, max_leaves_per_tree=64,
+                  main_max_leaves_per_tree=512, snap_budget_per_probe=64,
+                  cold_segments=24, cold_cache_slots=96, cold_fetch_rounds=8)
+    return PFOConfig(**kw)
+
+
+def _hash_alike(proj, cfg, n, seed):
+    """Seeded unit vectors whose table and partition projections all lie
+    >= MARGIN from zero (float64), so the CPU and the card hash them
+    alike."""
+    table = proj["table_proj"].double().numpy()
+    part = proj["part_proj"].double().numpy()
+    rng = np.random.default_rng(seed)
+    out = []
+    while len(out) < n:
+        x = rng.normal(size=(4 * n, cfg.dim)).astype(np.float32)
+        x /= np.linalg.norm(x, axis=1, keepdims=True)
+        p = x.astype(np.float64) @ table
+        bits = np.where(p >= 0, 1.0, -1.0).reshape(len(x), cfg.L, 32)
+        pp = np.einsum("nlm,lmc->nlc", bits, part)
+        keep = (np.abs(p).min(1) >= MARGIN) & (np.abs(pp).min((1, 2))
+                                               >= MARGIN)
+        out.extend(x[keep])
+    return np.stack(out[:n])
+
+
+def _stream_trace(engine, vecs):
+    """Inserts, self-queries, deletes, an update storm, a forced seal;
+    returns every ticket's result in submission order."""
+    tickets = [engine.insert(i, vecs[i]) for i in range(600)]
+    tickets += [engine.query(vecs[i], k=5) for i in range(0, 600, 13)]
+    res = engine.flush()
+    engine.seal()
+    for i in range(0, 600, 9):
+        tickets.append(engine.delete(i))
+    for r in range(3):
+        for i in range(1, 40, 6):
+            tickets.append(engine.update(i, vecs[600 + 10 * r + i // 6]))
+    tickets += [engine.query(vecs[i], k=5) for i in range(600, 640)]
+    tickets += [engine.insert(1000 + i, vecs[700 + i]) for i in range(100)]
+    tickets += [engine.query(vecs[i], k=5) for i in range(700, 800, 3)]
+    res.update(engine.flush())
+    return [res[t] for t in tickets]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cold", [False, True], ids=["hot", "cold"])
+@pytest.mark.parametrize("ordering", ["strict", "window"])
+def test_stream_engine_on_card_matches_cpu(cold, ordering):
+    """The same engine and trace on the CPU and on the card: acks, ids,
+    stats and sync counts equal, distances within 1e-5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import tempfile
+    from repro_torch.core import PFOIndex
+    from repro_torch.serving import StreamConfig, StreamEngine
+    cfg = _stream_cfg(cold)
+    proj = PFOIndex(cfg, seed=3, device="cpu").state.proj
+    vecs = _hash_alike(proj, cfg, 800, seed=21)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for dev in ("cpu", "cuda"):
+            eng = StreamEngine(
+                PFOIndex(cfg, device=dev, proj=proj,
+                         cold_dir=f"{tmp}/{dev}" if cold else None),
+                StreamConfig(max_batch=64, min_batch=8, default_k=5,
+                             ordering=ordering))
+            out[dev] = (_stream_trace(eng, vecs), eng.stats(),
+                        eng.index.sync_count, eng.index.maintenance_log)
+    (cpu, cst, csync, clog), (gpu, gst, gsync, glog) = out["cpu"], out["cuda"]
+    assert (cst, csync, clog) == (gst, gsync, glog)
+    assert len(cpu) == len(gpu)
+    for a, b in zip(cpu, gpu):
+        if isinstance(a, str):
+            assert a == b
+            continue
+        np.testing.assert_array_equal(a[0], b[0])
+        fin = np.isfinite(a[1])
+        np.testing.assert_array_equal(np.isfinite(b[1]), fin)
+        np.testing.assert_allclose(b[1][fin], a[1][fin], rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cold", [False, True], ids=["hot", "cold"])
+def test_stream_flush_after_warmup_builds_no_kernel(cold, monkeypatch):
+    """warmup() builds and loads every kernel library the rounds launch:
+    a flush after it loads no library and builds nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import tempfile
+    from repro_torch.core import PFOIndex
+    from repro_torch.kernels import _build
+    from repro_torch.serving import StreamConfig, StreamEngine
+    cfg = _stream_cfg(cold)
+    proj = PFOIndex(cfg, seed=3, device="cpu").state.proj
+    vecs = _hash_alike(proj, cfg, 800, seed=22)
+    with tempfile.TemporaryDirectory() as tmp:
+        eng = StreamEngine(PFOIndex(cfg, device="cuda", proj=proj,
+                                    cold_dir=tmp if cold else None),
+                           StreamConfig(max_batch=64, min_batch=8))
+        monkeypatch.setattr(_build, "_FNS", {})
+        eng.warmup()
+        loaded = set(_build._FNS)
+        assert {"lsh_hash", "gather_rank"} <= loaded
+        assert cold == ("gather_rank_staged" in loaded)
+
+        def no_build(*a, **kw):
+            raise AssertionError("a serving round built a kernel")
+        monkeypatch.setattr(_build, "build", no_build)
+        ops.reset_launches()
+        _stream_trace(eng, vecs)
+        assert set(_build._FNS) == loaded
+        ranked = "gather_rank_staged" if cold else "gather_rank"
+        assert ops.LAUNCHES["lsh_hash"] > 0 and ops.LAUNCHES[ranked] > 0

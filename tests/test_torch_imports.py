@@ -36,7 +36,8 @@ def test_no_jax_or_repro_import_in_source(path):
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.convert, "
             "repro_torch.kernels.ops, repro_torch.obs, repro_torch.storage, "
-            "repro_torch.core.coldtier, repro_torch.core.baselines\n"
+            "repro_torch.core.coldtier, repro_torch.core.baselines, "
+            "repro_torch.serving, repro_torch.obs.slo\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(','.join(bad))")
