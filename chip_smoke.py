@@ -35,18 +35,30 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    per-request ``PFOIndex`` calls, flush and request latencies, one flag
    readback per round, the syncs no one counted, a traced flush's idle
    share, and ``lsh_hash`` / ``gather_rank`` at the 256-row bucket;
-7. the paper's comparators on the hot path's own items and queries
+7. checkpoints (``checkpoint``): ``save_index_checkpoint`` of that index
+   into a temp dir and ``load_index_checkpoint`` on the card, every leaf
+   equal and the 1,024 hot queries answered bit-identically (save and
+   load seconds, bytes, the first restored query's ms); the small cold
+   trace config with file-backed segments checkpointed (segments
+   hardlinked) and restored with the same answers;
+8. the distributed engine (``dist``) on a one-rank NCCL group: a
+   ``DistStreamEngine`` and a ``StreamEngine`` on the card with the same
+   projections get the same trace (65,536 inserts, then 8,192 requests of
+   the stream mix in windows of 256, one forced seal, one forced merge)
+   and answer alike; requests/s of both, readbacks, implicit syncs and
+   collectives a round; a distributed checkpoint round trip;
+9. the paper's comparators on the hot path's own items and queries
    (``baselines``): ``ZOrderIndex`` and ``MultiProbeFlat`` inserted and
    queried beside PFO's answer, each with recall@10 and Eq. 1's error
    ratio against ``BruteForce``; ``SerializedPFO`` against a dispatched
    ``PFOIndex`` on 1,500 vectors, its forest equal on the CPU and on the
    card; counts set to 0 just before each comparator and read just
    after;
-8. the cold path at glove-100 width: 1,000,000 inserts with churn into
-   an index whose store holds a quarter of them, spilling to file-backed
+10. the cold path at glove-100 width: 800,000 inserts with churn into
+   an index whose store holds a third of them, spilling to file-backed
    segments; queries of cold-only items and deletes of them, counts set
    to 0 just before and read just after;
-9. each kernel against its plain version on the card, at the shapes its
+11. each kernel against its plain version on the card, at the shapes its
    path gave it, with its time, the plain version's time, one PyTorch
    library call's time and the least time the card could take (the
    bound): the larger of the bytes the call must move over the memory
@@ -61,7 +73,7 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    step), ``hamming`` through its wrapper, range check included, and
    ``lsh_hash`` and ``gather_rank`` also at the stream's 256-row bucket
    (``stream_bucket``, with their launches by path);
-10. the kernels line, the card's name and power limit, then the last
+12. the kernels line, the card's name and power limit, then the last
     line: ``{"ok": true, "device": {...}}``.
 
 Everything worth keeping is printed as one JSON object per line.
@@ -71,6 +83,8 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -83,6 +97,13 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import convert  # noqa: E402
+from repro_torch.checkpoint import (  # noqa: E402
+    load_dist_checkpoint, load_index_checkpoint, save_dist_checkpoint,
+    save_index_checkpoint)
+from repro_torch.checkpoint.ckpt import (  # noqa: E402
+    flatten_with_paths, read_manifest)
+from repro_torch.core import DistConfig  # noqa: E402
+from repro_torch.core import distributed as dist_mod  # noqa: E402
 from repro_torch.core import PFOConfig, PFOIndex  # noqa: E402
 from repro_torch.core import index as index_mod  # noqa: E402
 from repro_torch.core.baselines import (  # noqa: E402
@@ -96,7 +117,9 @@ from repro_torch.kernels.lsh_hash import lsh_hash_cuda  # noqa: E402
 from repro_torch.kernels.pair_dist import pair_dist_cuda  # noqa: E402
 from repro_torch.kernels.rank_candidates import rank_dots_cuda  # noqa: E402
 from repro_torch.obs import Obs  # noqa: E402
-from repro_torch.serving import StreamConfig, StreamEngine, drive  # noqa: E402
+from repro_torch.serving import (  # noqa: E402
+    DistStreamEngine, StreamConfig, StreamEngine, drive)
+from repro_torch.sharding import stream_mesh  # noqa: E402
 
 # published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bytes/s, fp32
 # FLOP/s outside the tensor cores and dense TF32 FLOP/s on them.  A bound
@@ -113,8 +136,10 @@ TIE_TOL = 1e-5           # oracle ids may differ only across a near-tie
 GLOVE_ROWS = 1_183_514   # glove-100-angular's train rows ...
 ITEMS = 500_000          # ... cut for the hot path, to leave time for the cold
 QUERIES = 1024           # k = 10, half self-queries, half fresh vectors
+QUERY_REPS = 7           # timed repeats of the hot path's query call
 DELETES = 4096           # enough to fill the tombstone buffer and merge
-COLD_ITEMS = 1_000_000   # the cold path's inserts, in waves of COLD_WAVE
+COLD_ITEMS = 800_000     # the cold path's inserts (cut for time), in waves
+#                          of COLD_WAVE
 COLD_WAVE = 4096
 FIG7_ITEMS = 1500        # paper_figs.fig7's n (3000, cut for time)
 FIG7_CHECK = 300         # the prefix whose forest is held CPU vs card
@@ -801,6 +826,15 @@ def phase_main(args):
     before_q = dict(ops.LAUNCHES)
     (got_ids, got_d), t_q, ranked = tap_ranking(lambda: idx.query(q, 10))
     q_launch = {k: ops.LAUNCHES[k] - before_q[k] for k in before_q}
+    # the spread: the same call again, QUERY_REPS times, each timed alone
+    # (one reading of a call has moved 9x between runs of the same code)
+    q_reps = []
+    for _ in range(QUERY_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        idx.query(q, 10)
+        torch.cuda.synchronize()
+        q_reps.append(time.perf_counter() - t0)
 
     dead_rows = torch.randperm(n, generator=g, device=dev)[:DELETES]
     dead = ids[dead_rows]
@@ -860,6 +894,9 @@ def phase_main(args):
          seals=idx.maintenance_log.count("seal"),
          merges=idx.maintenance_log.count("merge"),
          queries=nq, query_s=t_q, queries_per_s=nq / t_q,
+         query_reps_s=q_reps,
+         queries_per_s_reps=[nq / t for t in q_reps],
+         queries_per_s_median=float(nq / np.median(q_reps)),
          recall_at_10=float(recall.mean()),
          recall_at_10_fresh=float(recall[nq // 2:].mean()),
          oracle="BruteForce (pair_dist)", oracle_launches=oracle_launches,
@@ -891,7 +928,8 @@ def phase_main(args):
 # ----------------------------------------------------------------------
 STREAM_WARM = 1024          # requests before the measured leg
 STREAM_REQUESTS = 32768     # the measured leg
-STREAM_PER_REQUEST = 2048   # the same stream, one PFOIndex call a request
+STREAM_PER_REQUEST = 1024   # the same stream, one PFOIndex call a request
+#                             (cut for time)
 STREAM_FLUSH = 256          # requests a window (flush_every)
 STREAM_MIX = (0.5, 0.25, 0.125, 0.125)  # query / insert / delete / update
 STREAM_NOISE = 0.05         # a query's (or write's) noise a coordinate
@@ -1253,7 +1291,343 @@ def phase_stream(args, idx, hot: dict, rows: list):
 
 
 # ----------------------------------------------------------------------
-# phase 7: the paper's comparators on the hot path's items and queries
+# phase 7: checkpoints of the hot path's index and of a small cold one
+# ----------------------------------------------------------------------
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs)
+
+
+def leaves_equal(a, b) -> int:
+    """Every leaf of two states equal (``torch.equal``, same paths and
+    dtypes); returns the leaf count."""
+    pa, pb = flatten_with_paths(a), flatten_with_paths(b)
+    check([p for p, _ in pa] == [p for p, _ in pb], "leaf paths differ")
+    for (p, x), (_, y) in zip(pa, pb):
+        check(x.dtype == y.dtype and torch.equal(x, y),
+              f"leaf {p} differs after the restore")
+    return len(pa)
+
+
+def cold_checkpoint_check(seed: int, tmp: str) -> dict:
+    """The stream trace's small cold config with file-backed segments on
+    the card: spilled, checkpointed (segments hardlinked), restored,
+    queried alike."""
+    cfg = cold_trace_config()
+    proj = PFOIndex(cfg, seed=seed, device="cpu").state.proj
+    vecs = safe_vectors(proj, cfg, 2400, seed + 5)
+    idx = PFOIndex(cfg, device=DEVICE, proj=proj, cold_dir=f"{tmp}/seg")
+    ids = np.arange(len(vecs), dtype=np.int32)
+    for w in range(6):
+        idx.insert(ids[w * 400:(w + 1) * 400], vecs[w * 400:(w + 1) * 400])
+    idx.delete(ids[:100])
+    check(idx.cold.n_cold >= 1, "the small cold index did not spill")
+    path = save_index_checkpoint(f"{tmp}/ck", 1, idx)
+    man = read_manifest(f"{tmp}/ck", 1)["extra"]["cold_manifest"]
+    gids = [e["gid"] for row in man["lsh"] for e in row] \
+        + [e["gid"] for e in man["main"]]
+    for gid in gids:
+        check(os.stat(f"{path}/segments/seg_{gid:08d}.npy").st_ino
+              == os.stat(idx.cold.store.path(gid)).st_ino,
+              f"segment {gid} was copied, not hardlinked")
+    back = load_index_checkpoint(f"{tmp}/ck", 1, cfg, device=DEVICE,
+                                 cold_dir=f"{tmp}/seg2")
+    q = vecs[::9]
+    want, got = idx.query(q, 10), back.query(q, 10)
+    check(np.array_equal(want[0], got[0]) and np.array_equal(want[1], got[1]),
+          "the restored cold index answers differently")
+    return dict(segments=idx.cold.n_cold, hardlinked=len(gids),
+                queries=len(q), fetches_after_restore=back.cold.counters[
+                    "fetches"])
+
+
+def phase_checkpoint(args, idx, hot: dict, rows: list) -> None:
+    """``save_index_checkpoint`` of the hot path's index (after the
+    stream phase) into a temp dir and ``load_index_checkpoint`` on the
+    card: every leaf equal, the 1,024 hot queries bit-identical, the
+    restored queries' launches counted; then the small cold config with
+    file-backed segments."""
+    t_phase = time.perf_counter()
+    cfg, q = idx.cfg, hot["q"]
+    want = idx.query(q, 10)
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save_index_checkpoint(f"{tmp}/hot", 1, idx)
+        save_s = time.perf_counter() - t0
+        n_bytes = dir_bytes(path)
+        codecs = sorted({e["codec"] for e in
+                         read_manifest(f"{tmp}/hot", 1)["leaves"]})
+        t0 = time.perf_counter()
+        back = load_index_checkpoint(f"{tmp}/hot", 1, cfg, seed=args.seed,
+                                     device=DEVICE)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        shutil.rmtree(path)
+    n_leaves = leaves_equal(idx.state, back.state)
+    check(back.n_inserted == idx.n_inserted, "n_inserted not restored")
+    ops.reset_launches()                      # counts start here ...
+    t0 = time.perf_counter()
+    first = back.query(q[:1], 10)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    got = back.query(q, 10)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)             # ... and stop here
+    check(np.array_equal(first[0][0], want[0][0]),
+          "the first restored query differs")
+    check(np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1]),
+          "the restored index's answers are not bit-identical")
+    check(launches["lsh_hash"] > 0 and launches["gather_rank"] > 0,
+          f"a kernel of the restored queries was never launched: {launches}")
+    for row in rows[:2]:
+        row.setdefault("launches_by_path", {})["checkpoint"] = \
+            launches[row["name"]]
+    del back
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        cold = cold_checkpoint_check(args.seed, tmp)
+    emit(phase="checkpoint", items=int(idx.n_inserted), dim=cfg.dim,
+         save_s=save_s, load_s=load_s, bytes=n_bytes, codecs=codecs,
+         leaves=n_leaves, leaves_equal=True, queries=int(q.shape[0]),
+         answers_bit_identical=True, first_query_ms=first_ms,
+         launches={k: launches[k] for k in ("lsh_hash", "gather_rank")},
+         cold=cold, s=time.perf_counter() - t_phase)
+
+
+# ----------------------------------------------------------------------
+# phase 8: the distributed engine on a one-rank NCCL group
+# ----------------------------------------------------------------------
+DIST_ITEMS = 65536          # inserts before the mixed leg (cut for time)
+DIST_REQUESTS = 8192        # the stream phase's mix, windows of STREAM_FLUSH
+DIST_BATCH = 4096           # rounds of the insert prefix (and max_batch)
+
+
+def dist_workload(vecs: torch.Tensor, n_items: int, n_req: int, seed: int):
+    """DIST_ITEMS inserts, then the stream phase's mix over them: noisy
+    or self queries, inserts of fresh ids, deletes of any id issued so far
+    (they repeat), updates; host rows of the card's vectors."""
+    rng = np.random.default_rng(seed)
+    host = vecs.cpu().numpy()
+    dim = host.shape[1]
+    calls = [("insert", i, host[i]) for i in range(n_items)]
+    kinds = rng.choice(4, size=n_req, p=STREAM_MIX)
+    nxt = n_items
+    for kd in kinds:
+        if kd == 0:
+            j = int(rng.integers(nxt))
+            x = host[j % len(host)]
+            if rng.random() >= STREAM_SELF:
+                x = x + STREAM_NOISE * rng.normal(size=dim).astype(
+                    np.float32)
+            calls.append(("query", x.astype(np.float32), 10))
+        elif kd == 1:
+            calls.append(("insert", nxt, host[nxt % len(host)]))
+            nxt += 1
+        elif kd == 2:
+            calls.append(("delete", int(rng.integers(nxt))))
+        else:
+            j = int(rng.integers(n_items))
+            x = host[j] + STREAM_NOISE * rng.normal(size=dim).astype(
+                np.float32)
+            calls.append(("update", j, x.astype(np.float32)))
+    return calls
+
+
+def answers_equal(a: dict, b: dict, tickets) -> dict:
+    """Two engines' answers ticket by ticket: acks equal; query ids equal
+    with distances within DIST_TOL, or (a near-tie) the sorted distances
+    equal within TIE_TOL where the ids differ."""
+    ties = n_q = 0
+    for ta, tb in tickets:
+        x, y = a[ta], b[tb]
+        if isinstance(x, str) or isinstance(y, str):
+            check(x == y, f"an ack differs: {x} != {y}")
+            continue
+        n_q += 1
+        fin = np.isfinite(y[1])
+        check(np.array_equal(np.isfinite(x[1]), fin),
+              "answers differ in length")
+        check(np.abs(x[1][fin] - y[1][fin]).max(initial=0) <= DIST_TOL,
+              "distances differ")
+        if not np.array_equal(x[0], y[0]):
+            ties += 1
+            check(np.abs(x[1][fin] - y[1][fin]).max(initial=0) <= TIE_TOL,
+                  "ids differ off a near-tie")
+    return dict(queries=n_q, near_tie_rows=ties)
+
+
+def phase_dist(args, rows: list) -> None:
+    """The distributed engine on a one-rank NCCL group (the degenerate
+    mesh the JAX package's fast-lane tests use; a multi-rank NCCL run
+    needs one process per GPU): a ``DistStreamEngine`` and a
+    ``StreamEngine`` on the card with the same projections get the same
+    trace — DIST_ITEMS inserts, then DIST_REQUESTS requests of the stream
+    mix in windows of STREAM_FLUSH, with one forced seal and one forced
+    merge — and answer alike; then a distributed checkpoint round trip.
+    The launch counts are set to 0 just before each engine's mixed leg
+    and read just after."""
+    t_phase = time.perf_counter()
+    cfg = main_config()
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.distributed.init_process_group(
+            "nccl", store=torch.distributed.FileStore(f"{tmp}/pg", 1),
+            rank=0, world_size=1)
+        try:
+            out = _dist_run(args, cfg, tmp, rows)
+        finally:
+            torch.distributed.destroy_process_group()
+    emit(phase="dist", **out, s=time.perf_counter() - t_phase)
+
+
+def _dist_leg(eng, name, prefix, mixed, results, probes, rows,
+              warnings) -> dict:
+    """One engine of the dist phase: the insert prefix, the forced seal,
+    then the mixed leg (the forced merge halfway) timed under the sync
+    warnings, the launch counts set to 0 just before and read just
+    after."""
+    half = len(mixed) // 2
+    t0 = time.perf_counter()
+    res, _, _ = drive(eng, prefix, flush_every=DIST_BATCH)
+    insert_s = time.perf_counter() - t0
+    eng.seal()                                  # the forced seal
+    results[name].update(res)
+    before = eng.stats()
+    coll = dict(dist_mod.COLLECTIVES)
+    probes[0] = 0
+    torch.cuda.synchronize()
+    ops.reset_launches()                      # counts start here ...
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            r1, _, lat1 = drive(eng, mixed[:half], flush_every=STREAM_FLUSH)
+            eng.merge()                         # the forced merge
+            r2, _, lat2 = drive(eng, mixed[half:], flush_every=STREAM_FLUSH)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    launches = dict(ops.LAUNCHES)             # ... and stop here
+    after = eng.stats()
+    results[name].update(r1)
+    results[name].update(r2)
+    syncs = sum(SYNC_WARNING in str(w.message) for w in caught)
+    rounds = after["rounds"] - before["rounds"]
+    q_rounds = (after["rounds_by_kind"]["query"]
+                - before["rounds_by_kind"]["query"])
+    readbacks = after["readbacks"] - before["readbacks"]
+    check(readbacks == rounds + probes[0],
+          f"{name}: readbacks {readbacks} != rounds {rounds} + flag probes "
+          f"{probes[0]}")
+    leg = dict(insert_s=insert_s, inserts_per_s=len(prefix) / insert_s,
+               mixed_s=secs, engine_rps=len(mixed) / secs,
+               rounds=rounds, query_rounds=q_rounds, readbacks=readbacks,
+               flag_probes=probes[0],
+               readbacks_per_round=(readbacks - probes[0]) / rounds,
+               implicit_syncs_per_round=(syncs - readbacks - q_rounds)
+               / (rounds + q_rounds),
+               flush_ms_p50=float(np.percentile(
+                   np.asarray(lat1 + lat2) * 1e3, 50)),
+               seals=after["seals"], merges=after["merges"],
+               launches={k: launches[k] for k in ("lsh_hash", "gather_rank")})
+    if name == "dist":
+        n_coll = {k: dist_mod.COLLECTIVES[k] - coll.get(k, 0)
+                  for k in dist_mod.COLLECTIVES}
+        leg["collectives"] = n_coll
+        leg["collectives_per_round"] = sum(n_coll.values()) / (
+            rounds + q_rounds)
+        check(launches["lsh_hash"] > 0,
+              f"lsh_hash was never launched on the dist path: {launches}")
+        rows[0].setdefault("launches_by_path", {})["dist"] = \
+            launches["lsh_hash"]
+    else:
+        check(launches["lsh_hash"] > 0 and launches["gather_rank"] > 0,
+              f"a kernel of the single engine never launched: {launches}")
+    return leg
+
+
+def _dist_run(args, cfg, tmp, rows) -> dict:
+    import warnings
+    mesh = stream_mesh(1)                     # CUDA, NCCL
+    check(mesh.backend == "nccl", f"the mesh runs on {mesh.backend}")
+    # 4096-row rounds carry the insert prefix; the mixed leg's windows
+    # of STREAM_FLUSH requests never fill a bucket past 256
+    scfg = StreamConfig(max_batch=DIST_BATCH, min_batch=8, default_k=10,
+                        ordering="window")
+    dcfg = DistConfig(pfo=cfg, n_model=1)
+    deng = DistStreamEngine(dcfg, mesh, scfg, seed=args.seed)
+    proj = deng.backend.state.proj
+    seng = StreamEngine(PFOIndex(cfg, device=DEVICE, proj=proj), scfg)
+    vecs = clustered(DIST_ITEMS + DIST_REQUESTS, cfg.dim, args.seed + 21,
+                     torch.device(DEVICE))
+    calls = dist_workload(vecs, DIST_ITEMS, DIST_REQUESTS, args.seed + 22)
+    del vecs
+    t0 = time.perf_counter()
+    deng.warmup()
+    seng.warmup()
+    warmup_s = time.perf_counter() - t0
+    prefix, mixed = calls[:DIST_ITEMS], calls[DIST_ITEMS:]
+    legs = {}
+    results = {"dist": {}, "single": {}}
+    probes = [0]
+
+    def counted(fn):
+        def run(*a, **kw):
+            probes[0] += 1
+            return fn(*a, **kw)
+        return run
+
+    real_round_flags = index_mod.round_flags
+    deng.backend._flags_fn = counted(deng.backend._flags_fn)
+    index_mod.round_flags = counted(real_round_flags)
+    try:
+        for name, eng in (("dist", deng), ("single", seng)):
+            legs[name] = _dist_leg(eng, name, prefix, mixed, results, probes,
+                                   rows, warnings)
+    finally:
+        index_mod.round_flags = real_round_flags
+    # the tickets of both engines pair up in submission order
+    tickets = list(zip(sorted(results["dist"]), sorted(results["single"])))
+    check(len(tickets) == len(calls), "a request went unanswered")
+    eq = answers_equal(results["dist"], results["single"], tickets)
+    for key in ("seals", "merges"):
+        check(legs["dist"][key] == legs["single"][key],
+              f"{key}: dist {legs['dist'][key]} != single "
+              f"{legs['single'][key]}")
+    # a distributed checkpoint round trip, answers equal
+    probe = [c for c in mixed if c[0] == "query"][:256]
+    t0 = time.perf_counter()
+    path = save_dist_checkpoint(f"{tmp}/dck", 1, deng.backend)
+    save_s = time.perf_counter() - t0
+    n_bytes = dir_bytes(path)
+    want, _, _ = drive(deng, probe, flush_every=STREAM_FLUSH)
+    del seng
+    torch.cuda.empty_cache()
+    back = DistStreamEngine(dcfg, mesh, scfg, seed=args.seed + 1)
+    t0 = time.perf_counter()
+    load_dist_checkpoint(f"{tmp}/dck", 1, back.backend)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    got, _, _ = drive(back, probe, flush_every=STREAM_FLUSH)
+    for a, b in zip(sorted(want), sorted(got)):
+        check(np.array_equal(want[a][0], got[b][0])
+              and np.array_equal(want[a][1], got[b][1]),
+              "the restored dist engine answers differently")
+    return dict(items=DIST_ITEMS, requests=DIST_REQUESTS, dim=cfg.dim,
+                n_model=1, backend=mesh.backend,
+                reduced=[f"items {ITEMS} -> {DIST_ITEMS}: cut for time"],
+                mix=dict(zip(("query", "insert", "delete", "update"),
+                             STREAM_MIX)),
+                warmup_s=warmup_s, legs=legs, equal=True, **eq,
+                dist_over_single_rps=legs["dist"]["engine_rps"]
+                / legs["single"]["engine_rps"],
+                checkpoint=dict(save_s=save_s, load_s=load_s, bytes=n_bytes,
+                                queries=len(probe), answers_equal=True))
+
+
+# ----------------------------------------------------------------------
+# phase 9: the paper's comparators on the hot path's items and queries
 # ----------------------------------------------------------------------
 def run_comparator(index, ids, vecs, q, batch: int):
     """Insert (ids, vecs) in batches and answer q once, with the launch
@@ -1399,7 +1773,7 @@ def phase_baselines(args, hot):
 
 
 # ----------------------------------------------------------------------
-# phase 8: the cold path at glove-100 width
+# phase 10: the cold path at glove-100 width
 # ----------------------------------------------------------------------
 COLD_TOMBSTONES = 1 << 17
 COLD_BUDGET = 256
@@ -1540,6 +1914,7 @@ def phase_cold_main(args):
     recall = recall_at(got_ids, truth)
     staged = q_stats["staged_ranked"]
     emit(phase="cold_path", items=n, live_items=n_live, dim=cfg.dim,
+         reduced=[f"items {GLOVE_ROWS} -> {n}: cut for time"],
          config={k: getattr(cfg, k) for k in (
              "L", "C", "m", "l", "max_candidates_total", "max_snapshots",
              "store_capacity", "store_low_watermark", "max_tombstones",
@@ -1578,7 +1953,7 @@ def phase_cold_main(args):
 
 
 # ----------------------------------------------------------------------
-# phase 9: each kernel against its plain version, timed, with its bound
+# phase 11: each kernel against its plain version, timed, with its bound
 # ----------------------------------------------------------------------
 def hash_flips(x, a):
     """lsh_hash's bits on the card against its plain version and against
@@ -1911,7 +2286,10 @@ def main() -> int:
     idx, ranked, launches, hot = phase_main(args)
     rows = phase_kernels(idx, ranked, launches)
     phase_stream(args, idx, hot, rows)
+    phase_checkpoint(args, idx, hot, rows)
     del idx, ranked
+    torch.cuda.empty_cache()
+    phase_dist(args, rows)
     torch.cuda.empty_cache()
     hot_pair = pair_dist_at(hot["oracle_in"])
     feeds = phase_baselines(args, hot)

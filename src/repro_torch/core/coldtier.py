@@ -35,12 +35,14 @@ numpy only; the driver thread installs the result between rounds.
 Tombstone application runs synchronously inside the merge epoch
 (:meth:`ColdManager.merge_cold`).
 
+A distributed shard runs the same machinery over one *mixed-table*
+chain (``mixed_lsh``: every LSH table the shard owns in one segment
+sequence, the table id in ``vals``; :func:`cold_probe_lsh_mixed`), and
+a checkpoint records the segment layout (:meth:`ColdManager.manifest`)
+and re-adopts it (:meth:`ColdManager.adopt_manifest`).
+
 This mirrors the JAX package's ``core/coldtier.py``.  Uint32 keys and
-Bloom words ride in int64, as everywhere in the port.  Left out here,
-for later slices of the port: the distributed per-shard tier
-(``cold_probe_lsh_mixed``, ``ColdManager.adopt_spill``, ``mixed_lsh``
-and ``_fold_entries(group_by_val=True)``) and the checkpoint manifest
-(``ColdManager.manifest`` / ``adopt_manifest``).
+Bloom words ride in int64, as everywhere in the port.
 """
 from __future__ import annotations
 
@@ -206,6 +208,54 @@ def cold_probe_lsh(cold: ColdState, hs: torch.Tensor, lsh_cfg: PFOConfig):
             fp.sum(dtype=torch.int32))
 
 
+def cold_probe_lsh_mixed(cold: ColdState, hs: torch.Tensor,
+                         lsh_cfg: PFOConfig, view=None):
+    """Cold-tier LSH candidates against a *mixed-table* segment chain —
+    a distributed shard's tier, where one chain holds entries of every
+    LSH table the shard owns (table id in ``vals``, as in the shard's
+    sealed ring).
+
+    ``cold.lsh_route`` is (1, C, W): every table's probe prefixes test
+    the same C filters and spans gather from the same cache slots (table
+    tag 0).  Without ``view`` the spans are the cached segments' own, as
+    the JAX package reads them, and cross-table prefix collisions drop
+    out by ``val == table``; with the cache's ``snapshots.mixed_view``
+    each table reads its own run of a bucket.  Returns (cand
+    (Q, L*P*E*B), wanted (C,), missing (C,), probed, fp)."""
+    q, L = hs.shape
+    C = cold.lsh_route.stamps.shape[1]
+    cache = cold.lsh_cache
+    E = cache.keys.shape[0]
+    dev = hs.device
+    pfx = snap_mod.probe_prefixes(hs.t(), lsh_cfg).reshape(1, -1)  # (1, LQP)
+    lqp = pfx.shape[1]
+    hit = bloom_mod.contains_multi(cold.lsh_route.blooms, pfx,
+                                   lsh_cfg.bloom_hashes_eff)[0]    # (C, LQP)
+    act = (torch.arange(C, device=dev) < cold.n_cold)[:, None] & hit
+    wanted = act.any(1)
+    slot_ok, slot_seg, resident = _residency(
+        cache, torch.zeros(1, dtype=torch.int32, device=dev), C)
+    missing = wanted & ~resident[0]
+    act_slot = slot_ok[0][:, None] & act[cache.segs.to(torch.int64)
+                                         .clamp(0, C - 1)]        # (E, LQP)
+    if view is None:
+        cids, cvals, _, matched = snap_mod.span_gather(
+            cache.keys, cache.ids, cache.vals, act_slot,
+            pfx.expand(E, lqp).contiguous(), lsh_cfg)              # (E, LQP, B)
+        table = torch.arange(L, device=dev).repeat_interleave(lqp // L)
+        cids = torch.where(cvals == table[None, :, None], cids, -1)
+    else:
+        cp = snap_mod.table_prefixes(hs.t(), lsh_cfg).reshape(1, -1)
+        cids, _, _, matched = snap_mod.span_gather(
+            *view, act_slot, cp.expand(E, lqp).contiguous(), lsh_cfg)
+    probed = wanted & resident[0]
+    fp = probed & ~_seg_any(slot_seg, matched.any(1)[None], C)[0]
+    P = lsh_cfg.snap_probes
+    cand = cids.reshape(E, L, q, P, -1).permute(2, 1, 3, 0, 4).reshape(q, -1)
+    return (cand, wanted, missing, probed.sum(dtype=torch.int32),
+            fp.sum(dtype=torch.int32))
+
+
 def cold_lookup_main(cold: ColdState, mh: torch.Tensor, vids: torch.Tensor,
                      main_cfg: PFOConfig):
     """Exact (key, id) lookup in the cold MainTable cache.
@@ -309,7 +359,7 @@ def spill_device(lsh_snaps: snap_mod.SnapshotSet,
                  main_snaps: snap_mod.SnapshotSet, cold: ColdState,
                  store: DenseStore, main_forest, tombs: torch.Tensor,
                  lsh_cfg: PFOConfig, main_cfg: PFOConfig,
-                 main_tcfg: TreeConfig):
+                 main_tcfg: TreeConfig, tree_mod: int | None = None):
     """Pop the oldest ring segment of every tier; route its metadata into
     the cold routing table (in place); gather the popped MainTable
     segment's vector payloads out of the dense store and free the store
@@ -321,7 +371,11 @@ def spill_device(lsh_snaps: snap_mod.SnapshotSet,
     tombstone, and its slot is still live and still the id's.  Only
     those entries get a real payload row and a freed slot; stale entries
     keep a zero payload (they are never ranked, and their slots were
-    freed by the delete or update that superseded them)."""
+    freed by the delete or update that superseded them).
+
+    ``tree_mod``: a distributed shard's hot MainTable forest holds only
+    its ``tree_mod`` local trees, so the global murmur tree id reduces
+    modulo it (a shard's ring holds only ids the shard owns)."""
     lsh2, pl = snap_mod.pop_oldest(lsh_snaps, lsh_cfg)
     main2, pm = snap_mod.pop_oldest(snap_mod.one(main_snaps), main_cfg)
     main2 = snap_mod.unbatch(main2)
@@ -329,6 +383,8 @@ def spill_device(lsh_snaps: snap_mod.SnapshotSet,
     ids, vals = pm["ids"], pm["vals"]
     n_store = store.data.shape[0]
     mh, mtree = main_table_keys(ids, main_cfg)
+    if tree_mod is not None:
+        mtree = mtree % tree_mod
     _, hot_found = forest_lookup_masked(main_forest, mtree, mh, ids,
                                         main_tcfg)
     in_ring = member_sorted(ids, main2.ids)
@@ -372,7 +428,7 @@ def cache_install(cache: ColdCache, slot: int, keys, ids, vals, stamp: int,
 
 def ring_payload_drain(main_snaps: snap_mod.SnapshotSet, store: DenseStore,
                        main_forest, tombs: torch.Tensor, main_cfg: PFOConfig,
-                       main_tcfg: TreeConfig):
+                       main_tcfg: TreeConfig, tree_mod: int | None = None):
     """Device half of the cold merge's ring drain: gather the vector
     payload of every ring entry the ring holds the current version of,
     and free those store slots.  Returns (payloads (S, cap, d),
@@ -383,7 +439,7 @@ def ring_payload_drain(main_snaps: snap_mod.SnapshotSet, store: DenseStore,
     copies' slots were freed, and maybe re-owned, at delete time).  The
     newest copy per id comes from an (id asc, stamp desc) order: two
     stable sorts, the secondary key first, as the JAX package's
-    ``lexsort`` orders them."""
+    ``lexsort`` orders them.  ``tree_mod`` as in :func:`spill_device`."""
     S, cap = main_snaps.ids.shape
     ids = main_snaps.ids.reshape(-1)
     vals = main_snaps.vals.reshape(-1)
@@ -398,6 +454,8 @@ def ring_payload_drain(main_snaps: snap_mod.SnapshotSet, store: DenseStore,
     newest = torch.zeros_like(valid)
     newest[order] = first & (sid < INT_MAX)
     mh, mtree = main_table_keys(ids, main_cfg)
+    if tree_mod is not None:
+        mtree = mtree % tree_mod
     _, hot_found = forest_lookup_masked(main_forest, mtree, mh, ids,
                                         main_tcfg)
     dead = member_sorted(ids, tombs)
@@ -459,13 +517,16 @@ class _FoldResult(NamedTuple):
 
 def _fold_entries(keys, ids, vals, stamps, dead: np.ndarray, cap: int,
                   prefix_bits: int, bloom_hashes: int, bloom_bits: int,
-                  payloads=None):
+                  payloads=None, group_by_val: bool = False):
     """Fold concatenated segment entries: drop dead/padding, keep the
     newest stamp per id, re-sort bucket-major, chunk into cap-sized
     write-once segments with fresh Bloom filters.  Pure numpy.
     ``payloads`` (n, d) rows travel with their entries (MainTable
     tier), so tombstoned/superseded vectors are physically dropped in
-    the same pass that drops their index entries."""
+    the same pass that drops their index entries.  ``group_by_val``
+    keeps the newest entry per (id, val) instead of per id: a mixed-table
+    chain (``val`` == the owning LSH table) holds an id once per table,
+    as ``snapshots.merge(group_by_val=True)`` keeps it."""
     live = ids >= 0
     if dead.size:
         live &= ~np.isin(ids, dead)
@@ -476,8 +537,14 @@ def _fold_entries(keys, ids, vals, stamps, dead: np.ndarray, cap: int,
     p = None if payloads is None \
         else np.asarray(payloads, np.float32)[live]
     if i.size:
-        order = np.lexsort((-s, i))            # id asc, stamp desc
-        first = np.concatenate([[True], i[order][1:] != i[order][:-1]])
+        if group_by_val:
+            order = np.lexsort((-s, v, i))     # (id, val) asc, stamp desc
+            same = ((i[order][1:] == i[order][:-1])
+                    & (v[order][1:] == v[order][:-1]))
+            first = np.concatenate([[True], ~same])
+        else:
+            order = np.lexsort((-s, i))        # id asc, stamp desc
+            first = np.concatenate([[True], i[order][1:] != i[order][:-1]])
         keep = np.sort(order[first])
         k, i, v, s = k[keep], i[keep], v[keep], s[keep]
         ko = np.argsort(k, kind="stable")
@@ -522,9 +589,22 @@ class ColdManager:
 
     def __init__(self, cfg: PFOConfig, lsh_cfg: PFOConfig,
                  main_cfg: PFOConfig, main_tcfg: TreeConfig, device,
-                 root: str | None = None, on_sync=None):
+                 root: str | None = None, on_sync=None,
+                 mixed_lsh: bool = False, tree_mod: int | None = None,
+                 fold_filter=None):
+        """``mixed_lsh``: the LSH tier is one mixed-table chain (``val`` ==
+        owning table — a distributed shard's layout, driven with
+        ``cfg.L == 1``), so folds keep one entry per (id, table).
+        ``tree_mod``: the shard's local MainTable tree count
+        (:func:`spill_device`).  ``fold_filter(keys, ids, vals, stamps,
+        live) -> keep``: the LSH entries a fold may keep, agreed with the
+        other shards (a collective, so every shard folds in the same
+        epoch, synchronously; ``distributed.shard_cold_manager``)."""
         self.cfg, self.lsh_cfg, self.main_cfg = cfg, lsh_cfg, main_cfg
         self.main_tcfg = main_tcfg
+        self.mixed_lsh = mixed_lsh
+        self.tree_mod = tree_mod
+        self.fold_filter = fold_filter
         self.device = torch.device(device)
         self.store = SegmentStore(root)
         self.lsh_gids: list[list[int]] = [[] for _ in range(cfg.L)]
@@ -628,36 +708,47 @@ class ColdManager:
         }
 
     # -- spill ----------------------------------------------------------
-    def spill(self, state):
-        """One spill epoch: oldest ring segment of every tier -> host."""
+    def _check_room(self) -> None:
+        """A spill into a full routing table would write past it and the
+        segment's ids would vanish from queries: refuse loudly."""
         if self.n_cold >= self.cfg.cold_segments:
-            # the routing write at n_cold would fall off the table and
-            # the segment's ids would vanish from queries: refuse loudly
             raise RuntimeError(
                 f"cold routing table full ({self.n_cold}/"
                 f"{self.cfg.cold_segments} segments) and compaction "
                 "cannot shrink it; raise PFOConfig.cold_segments or the "
                 "snapshot capacities")
+
+    def spill(self, state):
+        """One spill epoch: oldest ring segment of every tier -> host."""
+        self._check_room()            # before the device pop changes state
         lsh2, main2, cold2, store2, pl, pm = spill_device(
             state.lsh_snaps, state.main_snaps, state.cold, state.store,
             state.main_forest, state.tombstones,
-            self.lsh_cfg, self.main_cfg, self.main_tcfg)
+            self.lsh_cfg, self.main_cfg, self.main_tcfg, self.tree_mod)
         self._on_sync()
-        pl_h = {k: _numpy(v, u32=k == "keys") for k, v in pl.items()}
-        pm_h = {k: _numpy(v, u32=k == "keys") for k, v in pm.items()}
+        self.adopt_spill(
+            {k: _numpy(v, u32=k == "keys") for k, v in pl.items()},
+            {k: _numpy(v, u32=k == "keys") for k, v in pm.items()})
+        return state._replace(lsh_snaps=lsh2, main_snaps=main2,
+                              cold=cold2, store=store2)
+
+    def adopt_spill(self, pl_h: dict, pm_h: dict) -> None:
+        """Persist one spill epoch's popped segments (host bookkeeping
+        only; the device pop already ran).  ``pl_h`` arrays carry a
+        leading table axis (``cfg.L``), ``pm_h`` arrays are flat — the
+        layout :func:`spill_device` pops."""
+        self._check_room()
         for l in range(self.cfg.L):
-            gid = self.store.put(pl_h["keys"][l], pl_h["ids"][l],
-                                 pl_h["vals"][l], pl_h["count"][l],
-                                 pl_h["stamp"][l])
-            self.lsh_gids[l].append(gid)
+            self.lsh_gids[l].append(
+                self.store.put(pl_h["keys"][l], pl_h["ids"][l],
+                               pl_h["vals"][l], pl_h["count"][l],
+                               pl_h["stamp"][l]))
         self.main_gids.append(
             self.store.put(pm_h["keys"], pm_h["ids"], pm_h["vals"],
                            pm_h["count"], pm_h["stamp"],
                            payload=pm_h["payload"]))
         self._gen += 1
         self.counters["spills"] += 1
-        return state._replace(lsh_snaps=lsh2, main_snaps=main2,
-                              cold=cold2, store=store2)
 
     # -- fetch ----------------------------------------------------------
     def _pick_slot(self, tags: list, use: list, needed: set) -> int | None:
@@ -777,11 +868,16 @@ class ColdManager:
             if ring_extra is not None:
                 k, i, v, s = (np.concatenate([a, b]) for a, b in
                               zip((k, i, v, s), ring_extra[l]))
+            if self.fold_filter is not None:
+                live = i >= 0
+                if dead.size:
+                    live &= ~np.isin(i, dead)
+                i = np.where(self.fold_filter(k, i, v, s, live), i, -1)
             lsh_out.append(_fold_entries(
                 k, i, v, s, dead, self.lsh_cfg.snapshot_capacity,
                 self.lsh_cfg.snap_prefix_bits,
                 self.lsh_cfg.bloom_hashes_eff,
-                self.lsh_cfg.bloom_bits_eff))
+                self.lsh_cfg.bloom_bits_eff, group_by_val=self.mixed_lsh))
         k, i, v, s, p = self._collect(self.main_gids, with_payload=True)
         if ring_extra_main is not None:
             k, i, v, s, p = (np.concatenate([a, b]) for a, b in
@@ -896,6 +992,9 @@ class ColdManager:
         """Kick the worker if idle; returns whether a fold is running.
         No-ops while the layout generation is one a previous fold
         already failed to shrink."""
+        if self.fold_filter is not None:
+            raise RuntimeError("a fold filter is a collective: fold "
+                               "synchronously (compact)")
         if self._gen == self._futile_gen:
             return False
         if self._worker is not None and self._worker.is_alive():
@@ -949,7 +1048,7 @@ class ColdManager:
         drain_p, _, store2 = ring_payload_drain(
             state.main_snaps, state.store, state.main_forest,
             torch.as_tensor(np.asarray(tombs, np.int32)).to(dev),
-            self.main_cfg, self.main_tcfg)
+            self.main_cfg, self.main_tcfg, self.tree_mod)
         state = state._replace(store=store2)
         self._on_sync()
         ls = {k: _numpy(v, u32=k in ("keys", "blooms"))
@@ -986,3 +1085,28 @@ class ColdManager:
         state = self._install_fold(state, fold)
         self.counters["cold_merges"] += 1
         return state
+
+    # -- checkpoint manifest -------------------------------------------
+    def manifest(self) -> dict:
+        """JSON-serializable cold layout: segment metadata by tier (each
+        entry its gid, count, stamp and payload width) and the
+        counters."""
+        def entry(gid):
+            return {"gid": gid, **self.store.meta(gid)}
+        return {
+            "lsh": [[entry(g) for g in row] for row in self.lsh_gids],
+            "main": [entry(g) for g in self.main_gids],
+            "counters": dict(self.counters),
+        }
+
+    def adopt_manifest(self, man: dict, src_paths: dict) -> None:
+        """Rebuild the gid lists from a checkpoint manifest, importing
+        every segment into this manager's store in manifest order (so a
+        restored routing table's column c is still segment c);
+        ``src_paths`` maps a manifest gid to its segment file."""
+        self.lsh_gids = [[self.store.import_file(src_paths[e["gid"]], e)
+                          for e in row] for row in man["lsh"]]
+        self.main_gids = [self.store.import_file(src_paths[e["gid"]], e)
+                          for e in man["main"]]
+        self.counters.update(man.get("counters", {}))
+        self._gen += 1

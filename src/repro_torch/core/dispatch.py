@@ -14,6 +14,8 @@ Python and are copied as they are.
 """
 from __future__ import annotations
 
+import collections
+
 import torch
 
 # ----------------------------------------------------------------------
@@ -137,4 +139,44 @@ def merge_client_queues(queues: list) -> list:
                 out.append(q[cursors[ci]])
                 cursors[ci] += 1
                 remaining -= 1
+    return out
+
+
+# ----------------------------------------------------------------------
+# distributed routing: trees sharded over the ranks of a process group
+# ----------------------------------------------------------------------
+#: collectives the distributed path issues, by kind (read them around a
+#: round to count its collectives; never reset here)
+COLLECTIVES: collections.Counter = collections.Counter()
+
+
+def owner_of_tree(tree_ids: torch.Tensor, n_trees: int,
+                  n_shards: int) -> torch.Tensor:
+    """Contiguous block ownership: shard s owns trees [s*T/S, (s+1)*T/S)."""
+    per = n_trees // n_shards
+    return torch.where(tree_ids >= 0, tree_ids // per, -1)
+
+
+def all_to_all_route(bufs: list, group=None) -> list:
+    """The actor message send: ONE ``all_to_all_single`` of several
+    (S, K_i, C_i) int32 send mailboxes over ``group`` (row s goes to rank
+    s), each packed with :func:`dispatch_to_trees` semantics (shard ==
+    tree), so every route of a round's hop (and the acks back) shares one
+    collective.  Returns each one's (S*K_i, C_i) receive block,
+    sender-major.  Rows past a destination's capacity never leave the
+    sender: its ``dispatch_to_trees`` overflow is the host's next round.
+    (The JAX package's ``all_to_all_route`` packs one payload and sends it
+    with its valid mask in two collectives.)"""
+    import torch.distributed as dist
+
+    S = bufs[0].shape[0]
+    send = torch.cat([b.reshape(S, -1) for b in bufs], 1).contiguous()
+    recv = torch.empty_like(send)
+    COLLECTIVES["all_to_all"] += 1
+    dist.all_to_all_single(recv, send, group=group)
+    out, at = [], 0
+    for b in bufs:
+        w = b[0].numel()
+        out.append(recv[:, at:at + w].reshape(S * b.shape[1], b.shape[2]))
+        at += w
     return out

@@ -528,6 +528,17 @@ def _pickup(tensors) -> list[np.ndarray]:
     return out
 
 
+def round_capacities(cfg: PFOConfig, n: int) -> tuple[int, int]:
+    """(main, lsh) per-tree mailbox capacities of an ``n``-row round:
+    twice the even spread over the trees, at least 8.  The distributed
+    backend sizes its receive-side mailboxes with the same numbers, so
+    its flag word fires epochs at the same rounds."""
+    total = cfg.L * cfg.n_trees
+    lsh = (n * cfg.L + total - 1) // total
+    main = (n + cfg.main_n_trees - 1) // cfg.main_n_trees
+    return int(max(8, 2 * main)), int(max(8, 2 * lsh))
+
+
 class PFOIndex:
     """Host-side orchestrator: owns the device state, runs dispatch rounds and
     seal/merge epochs (the paper's maintenance routines).
@@ -602,16 +613,6 @@ class PFOIndex:
         self.obs.histogram("index.maint_ms", epoch=name).observe(
             (time.perf_counter() - t0) * 1e3)
         return out
-
-    # -- capacity heuristics -------------------------------------------
-    def _lsh_capacity(self, n: int) -> int:
-        total = self.cfg.L * self.cfg.n_trees
-        per = (n * self.cfg.L + total - 1) // total
-        return int(max(8, 2 * per))
-
-    def _main_capacity(self, n: int) -> int:
-        per = (n + self.cfg.main_n_trees - 1) // self.cfg.main_n_trees
-        return int(max(8, 2 * per))
 
     # -- device-resident maintenance -----------------------------------
     def _read_flags(self, flags: torch.Tensor, caps: tuple[int, int]) -> int:
@@ -701,7 +702,7 @@ class PFOIndex:
         main_active = torch.ones((n,), dtype=torch.bool, device=dev)
         lsh_active = torch.ones((n * self.cfg.L,), dtype=torch.bool,
                                 device=dev)
-        lcap, mcap = self._lsh_capacity(n), self._main_capacity(n)
+        mcap, lcap = round_capacities(self.cfg, n)
         t0 = time.perf_counter()
         with self.obs.span("insert", n=n):
             flags = self._ensure_flags(mcap, lcap)
@@ -772,7 +773,7 @@ class PFOIndex:
         ids = self._ids(ids)
         active = torch.ones(ids.shape, dtype=torch.bool, device=self.device)
         n = int(ids.shape[0])
-        lcap, mcap = self._lsh_capacity(n), self._main_capacity(n)
+        mcap, lcap = round_capacities(self.cfg, n)
         t0 = time.perf_counter()
         with self.obs.span("delete", n=n):
             flags = self._ensure_flags(mcap, lcap)

@@ -233,6 +233,54 @@ def lookup_key_run(snaps: SnapshotSet, hs: torch.Tensor, vids: torch.Tensor,
     return torch.where(found, val, -1), found
 
 
+#: a mixed view's padding: past every (table << 32 | key)
+_VIEW_PAD = 1 << 62
+
+
+def mixed_view(keys: torch.Tensor, ids: torch.Tensor, vals: torch.Tensor):
+    """Mixed-table segments (..., cap) — a distributed shard's ring or
+    cold chain, sorted by key with the LSH table id in ``vals`` — seen
+    sorted by (table, key): the composite keys ``table << 32 | key``
+    (padding last) with the ids and vals in that order.  A table's
+    entries of a prefix bucket are then one run, so a probe of the view
+    reads the first ``snap_budget_per_probe`` entries *of its table*,
+    exactly the span a single-device per-table segment gives, where the
+    mixed segment's own bucket span is shared by every table."""
+    comp = torch.where(ids >= 0, (vals.to(torch.int64) << 32) | keys,
+                       _VIEW_PAD)
+    comp, order = torch.sort(comp, dim=-1, stable=True)
+    return comp, ids.gather(-1, order), vals.gather(-1, order)
+
+
+def table_prefixes(hs: torch.Tensor, cfg: PFOConfig) -> torch.Tensor:
+    """Composite probe prefixes of a mixed view: (L, N) keys ->
+    (L, N, P) ``table << prefix_bits | prefix``."""
+    L = hs.shape[0]
+    table = torch.arange(L, device=hs.device)[:, None, None]
+    return (table << cfg.snap_prefix_bits) | probe_prefixes(hs, cfg)
+
+
+def probe_mixed(snaps: SnapshotSet, view, hs: torch.Tensor, cfg: PFOConfig):
+    """:func:`probe` of a batch-of-one mixed ring through its
+    :func:`mixed_view`: hs (L, N) keys of table l in row l -> ids
+    (L, N, S * P * budget), newest segment first.  The Bloom filters are
+    the ring's own (over every table's prefixes)."""
+    _, S, _ = snaps.keys.shape
+    L, n = hs.shape
+    P = cfg.snap_probes
+    pfx = probe_prefixes(hs, cfg).reshape(1, -1)                # (1, LNP)
+    hit = bloom_mod.contains_multi(snaps.blooms, pfx,
+                                   cfg.bloom_hashes_eff)[0]    # (S, LNP)
+    live = torch.arange(S, device=hs.device) < snaps.n_snaps[0]
+    comp, vids, vvals = (v[0] for v in view)
+    cp = table_prefixes(hs, cfg).reshape(1, -1).expand(S, -1).contiguous()
+    cids, _, _, _ = span_gather(comp, vids, vvals, live[:, None] & hit, cp,
+                                cfg)                           # (S, LNP, B)
+    rev = torch.arange(S - 1, -1, -1, device=hs.device)
+    c = cids[rev].reshape(S, L, n, P, -1).permute(1, 2, 0, 3, 4)
+    return c.reshape(L, n, -1)
+
+
 def pop_oldest(snaps: SnapshotSet, cfg: PFOConfig):
     """Pop each ring's oldest segment (index 0).  Returns (shifted_set,
     popped) with ``popped`` a dict of the evicted segments' tensors —
@@ -255,10 +303,19 @@ def pop_oldest(snaps: SnapshotSet, cfg: PFOConfig):
 
 
 def merge(snaps: SnapshotSet, cfg: PFOConfig,
-          deleted_ids: torch.Tensor | None = None) -> SnapshotSet:
+          deleted_ids: torch.Tensor | None = None,
+          group_by_val: bool = False,
+          drop: torch.Tensor | None = None) -> SnapshotSet:
     """Merge compaction: fold each ring's segments into one, newest
     version of each id wins, deleted ids dropped.  Returns fresh rings
-    holding a single segment (at most one segment's worth is kept)."""
+    holding a single segment (at most one segment's worth is kept).
+
+    ``group_by_val`` keeps the newest version per (val, id) instead of
+    per id: a distributed shard seals all of its trees into one mixed
+    ring with the LSH table id in ``vals``, where an id lives once per
+    table.  Tombstones still match by id.  ``drop`` (b, S, cap) marks
+    entries the fold must not keep (a distributed shard's entries that
+    a newer entry on another shard supersedes)."""
     b, S, cap = snaps.keys.shape
     dev = snaps.keys.device
     keys = snaps.keys.reshape(b, -1)
@@ -268,17 +325,27 @@ def merge(snaps: SnapshotSet, cfg: PFOConfig,
     live = ids >= 0
     if deleted_ids is not None and deleted_ids.shape[0] > 0:
         live = live & ~member_sorted(ids, deleted_ids)
+    if drop is not None:
+        live = live & ~drop.reshape(b, -1)
 
-    # order by (id, newest stamp first), ties in storage order: stable
-    # sorts chained from the least significant key (the lexsort)
+    # order by ([val,] id, newest stamp first), ties in storage order:
+    # stable sorts chained from the least significant key (the lexsort)
     ikey = torch.where(live, ids, INT_MAX)
     order = torch.sort(-rank, dim=1, stable=True).indices
     order = order.gather(1, torch.sort(ikey.gather(1, order), dim=1,
                                        stable=True).indices)
+    if group_by_val:
+        gkey = torch.where(live, vals, 0)
+        order = order.gather(1, torch.sort(gkey.gather(1, order), dim=1,
+                                           stable=True).indices)
     sids = torch.where(live.gather(1, order), ids.gather(1, order), -1)
+    new_id = sids[:, 1:] != sids[:, :-1]
+    if group_by_val:
+        sgrp = gkey.gather(1, order)
+        new_id = new_id | (sgrp[:, 1:] != sgrp[:, :-1])
     first_of_id = torch.cat(
-        [torch.ones((b, 1), dtype=torch.bool, device=dev),
-         sids[:, 1:] != sids[:, :-1]], 1) & (sids >= 0)
+        [torch.ones((b, 1), dtype=torch.bool, device=dev), new_id],
+        1) & (sids >= 0)
     keep_keys = torch.where(first_of_id, keys.gather(1, order), PAD_KEY)
     keep_ids = torch.where(first_of_id, sids, -1)
     keep_vals = torch.where(first_of_id, vals.gather(1, order), 0)

@@ -28,17 +28,31 @@ Backend interface
 -----------------
 The bucket/ordering/flag-word machinery is device-topology agnostic:
 :class:`StreamEngine` drives a backend that owns the device state and
-the steps.  :class:`LocalBackend` wraps a single-device
-:class:`~repro_torch.core.index.PFOIndex`; the engine takes any object
-with an ``insert_round`` method as its backend, so a sharded one plugs
-in unchanged.
+the steps.  Two backends implement the contract:
+
+* :class:`LocalBackend` wraps a single-device
+  :class:`~repro_torch.core.index.PFOIndex`;
+* :class:`DistBackend` holds one rank's shard of a distributed state and
+  drives the ``core.distributed`` rounds on ``torch.distributed`` (trees
+  and MainTable over ``model``, query rows over ``data``).  Every rank
+  runs the same engine on the same request stream, which replicates the
+  updates over ``data``; each round's flag word is max-combined over the
+  ranks, so every host decision is taken alike everywhere.
+  :class:`DistStreamEngine` is the one-line assembly of engine +
+  distributed backend.
+
+The engine takes any object with an ``insert_round`` method as its
+backend.
 
 A backend supplies: its ``device``, per-bucket dispatch capacities, one
 insert/delete round per bucket returning the packed flag word, a query
 step, forced/flagged seal + merge epochs, and the carried-flag
 bookkeeping (``ensure_flags`` / ``read_flags`` — ``sync_count`` counts
 every explicit scalar readback, asserted one-per-round in tests).  The
-engine never touches device state directly.
+engine never touches device state directly, so both topologies share
+the window/strict semantics below, and the distributed engine answers
+every trace as the single-device one does
+(``tests/test_torch_dist.py``).
 
 Double-buffered rounds: while the device executes micro-batch ``t``,
 the host packs micro-batch ``t+1`` (the ``overlap`` hook fires between
@@ -114,24 +128,28 @@ Consistency (``StreamConfig.ordering``):
 Either way updates never reorder relative to each other, so the final
 index state always equals the sequential one.
 
-This mirrors the JAX package's ``serving/stream.py`` (its single-chip
-half): the same names, semantics, counters and ``stats()`` keys.
+This mirrors the JAX package's ``serving/stream.py``: the same names,
+semantics, counters and ``stats()`` keys.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Any
 
 import numpy as np
 import torch
 
-from ..core.dispatch import (FLAG_ANY_PENDING, FLAG_COLD_SPILL, FLAG_NAMES,
-                             FLAG_NEED_SEAL, FLAG_SNAPS_FULL, client_ticket,
+from ..core import distributed as dist_mod
+from ..core.dispatch import (FLAG_ANY_PENDING, FLAG_COLD_FULL, FLAG_COLD_MISS,
+                             FLAG_COLD_SPILL, FLAG_NAMES, FLAG_NEED_SEAL,
+                             FLAG_SNAPS_FULL, FLAG_TOMBS_FULL, client_ticket,
                              merge_client_queues, ticket_client)
 from ..core.index import (PFOIndex, _pickup, delete_step, delete_step_cold,
                           insert_step, merge_step, query_step,
-                          query_step_cold, round_flags, seal_step)
+                          query_step_cold, round_capacities, round_flags,
+                          seal_step)
 from ..kernels import _build
 from ..obs import Obs
 from ..obs import report as obs_report
@@ -232,8 +250,7 @@ class LocalBackend:
     def capacities(self, bucket: int) -> tuple[int, int]:
         """(main_capacity, lsh_capacity) for a bucket size."""
         if bucket not in self._cap_cache:
-            self._cap_cache[bucket] = (self.index._main_capacity(bucket),
-                                       self.index._lsh_capacity(bucket))
+            self._cap_cache[bucket] = round_capacities(self.cfg, bucket)
         return self._cap_cache[bucket]
 
     def set_flags_caps(self, fm: int, fl: int) -> None:
@@ -368,6 +385,403 @@ class LocalBackend:
         round_flags(idx.state, cfg, fm, fl)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
+
+
+class DistBackend:
+    """One rank's backend of the distributed engine: its shard of a
+    distributed ``PFOState`` and the ``core.distributed`` rounds, on the
+    mesh's device.
+
+    Round variants are memoized per bucket (static mailbox capacities
+    derive from the bucket) and the query per k, so the set of step
+    shapes is bounded by the bucket table, never by traffic.  The flag
+    word's thresholds use the same worst-case-bucket capacities as
+    :class:`LocalBackend`, so epochs fire at the same rounds as on one
+    device.  Host decisions that depend on one shard's host state (a
+    full cold chain before a spill, a compaction, a fetch that made no
+    progress) are agreed over the ranks with one ``all_reduce``, at
+    epoch or miss time only.  ``stats()`` and ``cold_stats()`` are
+    collectives: every rank calls them.
+    """
+
+    #: the kernels a stream's rounds launch on the card (its rank reads
+    #: candidates with the inline formula, not ``gather_rank``)
+    KERNELS = ("lsh_hash",)
+
+    def __init__(self, dcfg, mesh, seed: int = 0,
+                 cold_dir: str | None = None, proj: dict | None = None):
+        self.dcfg, self.mesh, self.cfg = dcfg, mesh, dcfg.pfo
+        self.device = mesh.device
+        self.state = dist_mod.dist_init_state(dcfg, mesh, proj=proj,
+                                              seed=seed)
+        self.sync_count = 0
+        self.maintenance_log: list[str] = []
+        self.n_inserted = 0
+        self.obs = Obs()
+        self.obs.on_snapshot("dist", self._mirror_obs)
+        # query candidates dropped by owner-mailbox skew (queries have no
+        # retry round), accumulated on the device, read by stats() only
+        self._query_drops = torch.zeros((), dtype=torch.int64,
+                                        device=self.device)
+        self._flags: int | None = None
+        self._flags_caps = (0, 0)
+        self._flags_fn = None
+        self._ins: dict[int, Any] = {}
+        self._del: dict[int, Any] = {}
+        self._qry: dict[int, Any] = {}
+        self._views = None           # (ring, cache key, views) of the probes
+        self._seal_fn = dist_mod.make_dist_seal(dcfg, mesh)
+        self._merge_fn = dist_mod.make_dist_merge(dcfg, mesh)
+        # this rank's shard of the cold tier: one mixed-table chain under
+        # cold_dir/shard<k> (a data replica other than 0 keeps its own)
+        self.cold_mgr = None
+        self._delete_miss = None
+        if self.cfg.cold_enabled:
+            root = None
+            if cold_dir is not None:
+                name = f"shard{mesh.shard}" + (
+                    f".data{mesh.data_index}" if mesh.data_index else "")
+                root = os.path.join(cold_dir, name)
+            self.cold_mgr = dist_mod.shard_cold_manager(
+                dcfg, mesh, root=root, on_sync=self._count_sync)
+
+    def _count_sync(self) -> None:
+        self.sync_count += 1
+
+    def _agree_any(self, flag: bool) -> bool:
+        """A host flag OR-combined over every rank (one ``all_reduce`` and
+        one readback; epoch and miss service only)."""
+        t = torch.tensor([int(flag)], dtype=torch.int32, device=self.device)
+        (t,) = dist_mod._reduce_max(self.mesh.world_group, t)
+        self._count_sync()
+        return bool(t.item())
+
+    # -- capacities / flags --------------------------------------------
+    def capacities(self, bucket: int) -> tuple[int, int]:
+        """Receive-side per-tree capacities: the single-device ones
+        (``round_capacities``), so the per-tree mailbox scan stays as
+        short as on one device."""
+        return round_capacities(self.cfg, bucket)
+
+    def route_capacities(self, bucket: int) -> tuple[int, int]:
+        """Per-destination send mailboxes: ~2x the even spread; skew
+        overflows surface as pending and retry."""
+        S = self.dcfg.n_model
+        rmain = int(max(8, 2 * -(-bucket // (S * S))))
+        rlsh = int(max(8, 2 * -(-bucket * self.cfg.L // (S * S))))
+        return rmain, rlsh
+
+    def set_flags_caps(self, fm: int, fl: int) -> None:
+        self._flags_caps = (fm, fl)
+        self._flags_fn = dist_mod.make_dist_round_flags(self.dcfg, self.mesh,
+                                                        fm, fl)
+
+    def ensure_flags(self) -> int:
+        if self._flags is not None:
+            return self._flags
+        return self.read_flags(self._flags_fn(self.state))
+
+    def read_flags(self, fw) -> int:
+        """THE readback of a round: one i32 word, the same on every rank."""
+        self.sync_count += 1
+        self._flags = int(fw.item())
+        return self._flags
+
+    # -- observability --------------------------------------------------
+    def set_obs(self, obs: Obs) -> None:
+        """Bind an observability handle; the shards' counters aggregate
+        at snapshot time (``dist.*`` gauges; a collective)."""
+        self.obs = obs
+        obs.on_snapshot("dist", self._mirror_obs)
+
+    def _mirror_obs(self) -> None:
+        g = self.obs.gauge
+        g("index.readbacks").set(self.sync_count)
+        g("dist.shards").set(self.dcfg.n_model)
+        g("dist.query_candidate_drops").set(int(self._query_drops.item()))
+        occ = dist_mod.shard_occupancy(self.state, self.mesh)
+        g("dist.shard_imbalance").set(occ["imbalance"])
+        for s, v in enumerate(occ["items_per_shard"]):
+            g("dist.items_hot", shard=s).set(v)
+        if self.cold_mgr is not None:
+            cs = self.cold_stats()
+            for key in ("cold_segments", "fetches", "cache_hit_rate",
+                        "vec_staging_hit_rate"):
+                g(f"cold.{key}").set(cs[key])
+            g("cold.spills").set(cs["segments_spilled"])
+            g("cold.merges").set(cs["cold_merges"])
+
+    def _epoch(self, name: str, fn, *args):
+        t0 = time.perf_counter()
+        with self.obs.span(name):
+            out = fn(*args)
+        self.obs.histogram("index.maint_ms", epoch=name).observe(
+            (time.perf_counter() - t0) * 1e3)
+        return out
+
+    def maintain(self, flags: int) -> None:
+        if flags & FLAG_NEED_SEAL:
+            if self.cold_mgr is not None and flags & FLAG_COLD_SPILL:
+                # capacity relief with a cold tier: spill, never merge
+                # (lockstep rings: every shard spills this epoch)
+                self._epoch("spill", self._spill)
+                self.maintenance_log.append("spill")
+            elif flags & FLAG_SNAPS_FULL:
+                self.state = self._epoch("merge", self._merge_fn, self.state)
+                self.maintenance_log.append("merge")
+            self.state = self._epoch("seal", self._seal_fn, self.state)
+            self.maintenance_log.append("seal")
+        if flags & FLAG_TOMBS_FULL:
+            if self.cold_mgr is not None:
+                self._epoch("merge", self._merge_with_cold)
+            else:
+                self.state = self._epoch("merge", self._merge_fn, self.state)
+            self.maintenance_log.append("merge")
+        if self.cold_mgr is not None and flags & FLAG_COLD_FULL:
+            self._compact()
+        if flags & (FLAG_NEED_SEAL | FLAG_TOMBS_FULL):
+            self._flags = None       # state changed; carried word stale
+
+    # -- cold epochs (shard-local host halves) --------------------------
+    def _spill(self) -> None:
+        """Distributed spill epoch: every rank pops its shard's oldest
+        ring segments and persists them through its own manager."""
+        if self._agree_any(self.cold_mgr.n_cold >= self.cfg.cold_segments):
+            self._compact(only_full=True)
+        self.state = self.cold_mgr.spill(self.state)
+        self._flags = None
+
+    def _merge_with_cold(self) -> None:
+        """Distributed cold merge: every rank drains its shard's ring,
+        folds ring + cold chain with the replicated tombstones (host
+        numpy, shard-local), installs the layout and resets its rings;
+        the tombstone buffer drains alike everywhere."""
+        self._count_sync()
+        tombs = self.state.tombstones.cpu().numpy()
+        self.state = self.cold_mgr.merge_cold(self.state, tombs)
+        self.state = self.state._replace(
+            tombstones=torch.full_like(self.state.tombstones, -1),
+            n_tombstones=torch.zeros_like(self.state.n_tombstones))
+
+    def _compact(self, only_full: bool = False) -> None:
+        """Synchronous cold compaction of every shard at once, when any
+        shard wants one: ``only_full``, a shard whose routing table is
+        full (the pre-spill guard), else a shard not in futile backoff.
+        Every shard folds, since a fold's survivors are agreed over the
+        shards (``distributed.host_fold_filter``)."""
+        mgr = self.cold_mgr
+        fold = (mgr.n_cold >= self.cfg.cold_segments if only_full
+                else mgr._gen != mgr._futile_gen)
+        if not self._agree_any(fold):
+            return
+        self.state = mgr.compact(self.state)
+        self.maintenance_log.append("cold_compact")
+        self._flags = None
+
+    # -- rounds ---------------------------------------------------------
+    def _insert_fn(self, bucket: int):
+        if bucket not in self._ins:
+            tm, tl = self.capacities(bucket)
+            rm, rl = self.route_capacities(bucket)
+            fm, fl = self._flags_caps
+            self._ins[bucket] = dist_mod.make_dist_insert_round(
+                self.dcfg, self.mesh, route_main=rm, tree_main=tm,
+                route_lsh=rl, tree_lsh=tl, flags_main=fm, flags_lsh=fl)
+        return self._ins[bucket]
+
+    def _delete_fn(self, bucket: int):
+        if bucket not in self._del:
+            tm, tl = self.capacities(bucket)
+            _, rl = self.route_capacities(bucket)
+            fm, fl = self._flags_caps
+            self._del[bucket] = dist_mod.make_dist_delete_round(
+                self.dcfg, self.mesh, tree_main=tm, route_lsh=rl,
+                tree_lsh=tl, flags_main=fm, flags_lsh=fl)
+        return self._del[bucket]
+
+    def _query_fn(self, k: int):
+        if k not in self._qry:
+            self._qry[k] = dist_mod.make_dist_query(
+                self.dcfg, self.mesh, k, with_drop_count=True)
+        return self._qry[k]
+
+    def _probe_views(self):
+        """The (table, key) views of this shard's mixed ring and cold
+        cache, rebuilt only after an epoch replaced the ring or a fetch
+        or an install changed the cache."""
+        st = self.state
+        fetches = (None if self.cold_mgr is None
+                   else self.cold_mgr.counters["fetches"])
+        v = self._views
+        if v is None or v[0] is not st.lsh_snaps or v[1] is not st.cold \
+                or v[2] != fetches:
+            self._views = v = (st.lsh_snaps, st.cold, fetches,
+                               dist_mod.dist_views(st))
+        return v[3]
+
+    def query_rows(self, qvecs, k: int, overlap=None):
+        fn = self._query_fn(k)
+        if self.cold_mgr is None:
+            ids, dists, dropped = fn(self.state, qvecs, self._probe_views())
+            self._query_drops += dropped               # stays on the device
+            if overlap is not None:
+                overlap()             # dispatch in flight; pickup later
+            return ids, dists
+        # cold fetch loop (``PFOIndex._query_cold``): the masks and the
+        # every-rank miss flag ride the round's one pickup, so every rank
+        # takes the same number of attempts
+        mgr = self.cold_mgr
+        for attempt in range(self.cfg.cold_fetch_rounds + 1):
+            out = fn(self.state, qvecs, self._probe_views())
+            if attempt == 0 and overlap is not None:
+                overlap()            # first dispatch is in flight
+            ids, dists, dropped, wl, ml, wm, mm, info, miss = _pickup(out)
+            self._query_drops += int(dropped)
+            mgr.record_query_round(info)
+            if not miss:
+                break
+            if attempt == self.cfg.cold_fetch_rounds:
+                mgr.counters["incomplete_query_rounds"] += 1
+                break
+            before = mgr.counters["fetches"]
+            with self.obs.span("cold_fetch", attempt=attempt):
+                self.state = self.state._replace(cold=mgr.fetch_cold(
+                    self.state.cold, wl.astype(bool)[None],
+                    ml.astype(bool)[None], wm.astype(bool), mm.astype(bool)))
+            if not self._agree_any(mgr.counters["fetches"] != before):
+                # every cache slot is wanted by this round on every
+                # missing shard: the miss set can never drain
+                mgr.counters["incomplete_query_rounds"] += 1
+                break
+        return ids, dists
+
+    def insert_begin(self, bucket: int):
+        return None                       # slots live at the owner shard
+
+    def insert_round(self, ids, vecs, carry, main_active, lsh_active,
+                     bucket: int):
+        self.state, ma, la, fw = self._insert_fn(bucket)(
+            self.state, ids, vecs, main_active, lsh_active)
+        return carry, ma, la, fw
+
+    def delete_round(self, ids, active, bucket: int):
+        out = self._delete_fn(bucket)(self.state, ids, active)
+        self.state, pending, fw = out[:3]
+        if self.cold_mgr is not None:
+            self._delete_miss = out[3:]
+        return pending, fw
+
+    def after_flags(self, flags: int) -> None:
+        """COLD_MISS service: a delete round's MainTable probe matched a
+        non-resident cold segment on some shard — every rank reads its
+        stashed masks (the only extra readback, and only on miss rounds)
+        and fetches into its own cache before the retry round."""
+        if self.cold_mgr is None or not flags & FLAG_COLD_MISS \
+                or self._delete_miss is None:
+            return
+        self._count_sync()
+        wm, mm = (m.astype(bool) for m in _pickup(self._delete_miss))
+        self._delete_miss = None
+        mgr = self.cold_mgr
+        zeros = np.zeros((1, self.cfg.cold_segments), bool)
+        before = mgr.counters["fetches"]
+        with self.obs.span("cold_fetch", path="delete"):
+            self.state = self.state._replace(cold=mgr.fetch_cold(
+                self.state.cold, zeros, zeros, wm, mm))
+        if self._agree_any(bool(mm.any())
+                           and mgr.counters["fetches"] == before):
+            raise RuntimeError(
+                "delete cannot resolve: its Bloom route spans more cold "
+                f"segments than cold_cache_slots={self.cfg.cold_cache_slots}"
+                " can hold at once; raise PFOConfig.cold_cache_slots")
+
+    def cold_stats(self) -> dict | None:
+        """The cluster's cold stats (a collective).  Query accounting is
+        recorded on every rank as the cluster total already; structural
+        counters (spills, fetches, segments, bytes) sum over shards."""
+        if self.cold_mgr is None:
+            return None
+        out = self.cold_mgr.stats()
+        keys = ("cold_segments", "segments_spilled", "fetches",
+                "fetch_rounds", "compactions", "cold_merges",
+                "store_bytes_written", "vec_fetch_bytes", "vec_evictions",
+                "vec_resident_pages")
+        mine = torch.tensor([out[k2] for k2 in keys], dtype=torch.int64,
+                            device=self.device)
+        tot = dist_mod._all_gather(self.mesh.model_group, self.dcfg.n_model,
+                                   mine).sum(0).tolist()
+        out.update(zip(keys, tot))
+        qr = max(self.cold_mgr.counters["query_rounds"], 1)
+        out["fetches_per_query_round"] = round(out["fetches"] / qr, 4)
+        out["shards"] = self.dcfg.n_model
+        return out
+
+    def count_insert(self, n: int) -> None:
+        self.n_inserted += n
+
+    # -- epochs ---------------------------------------------------------
+    def force_seal(self) -> None:
+        self.state = self._seal_fn(self.state)
+        self._flags = None
+
+    def force_merge(self) -> None:
+        """A merge epoch now; with a cold tier the cold merge, as the
+        flag word's TOMBS_FULL runs it (a ring merge would drain the
+        tombstones that hide deleted ids' spilled copies)."""
+        if self.cold_mgr is not None:
+            self._merge_with_cold()
+        else:
+            self.state = self._merge_fn(self.state)
+        self._flags = None
+
+    # -- warmup ---------------------------------------------------------
+    def warmup(self, buckets, qcap: int, default_k: int) -> None:
+        """Build and load the kernels the rounds launch, then run one
+        all-inactive insert, delete and query round per bucket on every
+        rank (their collectives included).  An inactive round changes no
+        arena: the state stays bit-identical (the returned one is
+        dropped)."""
+        cfg, dev = self.cfg, self.device
+        if dev.type == "cuda":
+            _build.build(self.KERNELS)
+            for name in self.KERNELS:
+                _build.load(name)
+        for b in buckets:
+            ids = torch.zeros((b,), dtype=torch.int32, device=dev)
+            vecs = torch.zeros((b, cfg.dim), dtype=torch.float32, device=dev)
+            off = torch.zeros((b,), dtype=torch.bool, device=dev)
+            self._insert_fn(b)(self.state, ids, vecs, off,
+                               torch.zeros((b * cfg.L,), dtype=torch.bool,
+                                           device=dev))
+            self._delete_fn(b)(self.state, ids, off)
+            if b <= qcap:
+                # the raw program, not query_rows: the cold fetch loop
+                # would count warmup rounds into the manager
+                self._query_fn(default_k)(self.state, vecs,
+                                          self._probe_views())
+        self._flags_fn(self.state)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def stats(self) -> dict:
+        """Occupancy over every shard (a collective)."""
+        st = self.state
+        mine = torch.stack([
+            st.main_forest.n_items.sum(), st.lsh_forest.n_items.sum(),
+            st.store.free_top.to(torch.int64),
+            st.lsh_forest.overflow.sum()]).to(torch.int64)
+        tot = dist_mod._all_gather(self.mesh.model_group, self.dcfg.n_model,
+                                   mine).sum(0).tolist()
+        return {
+            "items_hot": tot[0],
+            "lsh_leaves": tot[1],
+            "snapshots": int(st.main_snaps.n_snaps),
+            "tombstones": int(st.n_tombstones),
+            "store_free": tot[2],
+            "overflow_events": tot[3],
+            "query_candidate_drops": int(self._query_drops.item()),
+            "stamp": int(st.stamp),
+        }
 
 
 # ======================================================================
@@ -969,6 +1383,32 @@ class StreamEngine:
             "deadline_clients": len(self._deadlines),
             "cold": self.backend.cold_stats(),
         }
+
+
+class DistStreamEngine(StreamEngine):
+    """Distributed stream engine: the same bucket/ordering/flag-word
+    machinery on one rank's shard of a distributed state (module
+    docstring).  Every rank constructs one with the same arguments and
+    feeds it the same requests; every rank gets every answer.  ``mesh``
+    None builds ``sharding.policy.stream_mesh(dcfg.n_model,
+    device=device)`` over the initialised default process group (None:
+    CUDA on NCCL; ``"cpu"``: gloo)."""
+
+    def __init__(self, dcfg, mesh=None, scfg: StreamConfig | None = None,
+                 seed: int = 0, obs: Obs | None = None,
+                 cold_dir: str | None = None, proj: dict | None = None,
+                 device=None):
+        if mesh is None:
+            from ..sharding.policy import stream_mesh
+            mesh = stream_mesh(dcfg.n_model, device=device)
+        scfg = scfg or StreamConfig()
+        if scfg.min_batch % mesh.n_data:
+            raise ValueError("query buckets must divide over the data "
+                             f"replicas: min_batch={scfg.min_batch}, "
+                             f"n_data={mesh.n_data}")
+        super().__init__(DistBackend(dcfg, mesh, seed=seed,
+                                     cold_dir=cold_dir, proj=proj),
+                         scfg, obs=obs)
 
 
 # ======================================================================

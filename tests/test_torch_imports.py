@@ -1,5 +1,6 @@
-"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor anything of the JAX package ``repro``."""
+"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and the
+multi-rank child ``tests/_torch_dist_child.py`` import neither JAX nor
+anything of the JAX package ``repro``."""
 import ast
 import os
 import subprocess
@@ -13,7 +14,7 @@ torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py"]
+    REPO / "chip_smoke.py", REPO / "tests" / "_torch_dist_child.py"]
 
 
 def _imported_roots(path: Path):
@@ -37,7 +38,9 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.convert, "
             "repro_torch.kernels.ops, repro_torch.obs, repro_torch.storage, "
             "repro_torch.core.coldtier, repro_torch.core.baselines, "
-            "repro_torch.serving, repro_torch.obs.slo\n"
+            "repro_torch.serving, repro_torch.obs.slo, "
+            "repro_torch.checkpoint, repro_torch.sharding, "
+            "repro_torch.core.distributed\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(','.join(bad))")
