@@ -43,22 +43,40 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    hardlinked) and restored with the same answers;
 8. the distributed engine (``dist``) on a one-rank NCCL group: a
    ``DistStreamEngine`` and a ``StreamEngine`` on the card with the same
-   projections get the same trace (65,536 inserts, then 8,192 requests of
+   projections get the same trace (32,768 inserts, then 8,192 requests of
    the stream mix in windows of 256, one forced seal, one forced merge)
    and answer alike; requests/s of both, readbacks, implicit syncs and
    collectives a round; a distributed checkpoint round trip;
-9. the paper's comparators on the hot path's own items and queries
+9. the LM serving path (``lm``): reduced smollm_135m and qwen2_7b in
+   f32 on the CPU and on the card (prefill and decode logits within
+   1e-4, three rounds of the kNN-LM engine with equal tokens and equal
+   datastore leaves); then smollm_135m at full width in bf16 (random
+   weights from a seeded ``torch.Generator``) behind ``ServingEngine``
+   with the PFO kNN-LM head on a ``StreamEngine``, over a datastore
+   filled with 32,768 memories (the model's hidden states over
+   ``SyntheticLM`` text -> the next token), the counts set to 0 just
+   before the fill and read after the recall oracle: three rounds of
+   four requests, decode == forward, the greedy tokens with the head
+   off, the kNN log-probs recomputed on the host, the online memories'
+   self-hits, recall@8 against ``BruteForce``; fill rate, prefill and
+   decode-step ms (the engine's CUDA-event clock), readbacks and
+   implicit syncs; then the path's kernels on the inputs tapped from it
+   at d = 576 (``lsh_hash`` on the first fill call and the first kNN
+   query, ``gather_rank`` on that query, ``pair_dist`` on the recall
+   oracle), each held against its plain version and timed, with its
+   bound (the kernel rows' ``lm`` entries and ``lm_oracle``);
+10. the paper's comparators on the hot path's own items and queries
    (``baselines``): ``ZOrderIndex`` and ``MultiProbeFlat`` inserted and
    queried beside PFO's answer, each with recall@10 and Eq. 1's error
    ratio against ``BruteForce``; ``SerializedPFO`` against a dispatched
-   ``PFOIndex`` on 1,500 vectors, its forest equal on the CPU and on the
+   ``PFOIndex`` on 500 vectors, its forest equal on the CPU and on the
    card; counts set to 0 just before each comparator and read just
    after;
-10. the cold path at glove-100 width: 800,000 inserts with churn into
+11. the cold path at glove-100 width: 800,000 inserts with churn into
    an index whose store holds a third of them, spilling to file-backed
    segments; queries of cold-only items and deletes of them, counts set
    to 0 just before and read just after;
-11. each kernel against its plain version on the card, at the shapes its
+12. each kernel against its plain version on the card, at the shapes its
    path gave it, with its time, the plain version's time, one PyTorch
    library call's time and the least time the card could take (the
    bound): the larger of the bytes the call must move over the memory
@@ -73,7 +91,7 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    step), ``hamming`` through its wrapper, range check included, and
    ``lsh_hash`` and ``gather_rank`` also at the stream's 256-row bucket
    (``stream_bucket``, with their launches by path);
-12. the kernels line, the card's name and power limit, then the last
+13. the kernels line, the card's name and power limit, then the last
     line: ``{"ok": true, "device": {...}}``.
 
 Everything worth keeping is printed as one JSON object per line.
@@ -82,6 +100,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import os
 import shutil
@@ -96,7 +115,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch import convert  # noqa: E402
+from repro_torch import configs, convert  # noqa: E402
 from repro_torch.checkpoint import (  # noqa: E402
     load_dist_checkpoint, load_index_checkpoint, save_dist_checkpoint,
     save_index_checkpoint)
@@ -109,6 +128,7 @@ from repro_torch.core import index as index_mod  # noqa: E402
 from repro_torch.core.baselines import (  # noqa: E402
     BruteForce, MultiProbeFlat, SerializedPFO, ZOrderIndex)
 from repro_torch.core.lsh import region_ids  # noqa: E402
+from repro_torch.data import SyntheticLM  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.gather_rank import (  # noqa: E402
     gather_rank_cuda, gather_rank_staged_cuda)
@@ -116,9 +136,12 @@ from repro_torch.kernels.hamming import hamming_cuda  # noqa: E402
 from repro_torch.kernels.lsh_hash import lsh_hash_cuda  # noqa: E402
 from repro_torch.kernels.pair_dist import pair_dist_cuda  # noqa: E402
 from repro_torch.kernels.rank_candidates import rank_dots_cuda  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
 from repro_torch.obs import Obs  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
-    DistStreamEngine, StreamConfig, StreamEngine, drive)
+    DistStreamEngine, ServeConfig, ServingEngine, StreamConfig, StreamEngine,
+    drive)
+from repro_torch.serving import engine as engine_mod  # noqa: E402
 from repro_torch.sharding import stream_mesh  # noqa: E402
 
 # published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bytes/s, fp32
@@ -141,7 +164,7 @@ DELETES = 4096           # enough to fill the tombstone buffer and merge
 COLD_ITEMS = 800_000     # the cold path's inserts (cut for time), in waves
 #                          of COLD_WAVE
 COLD_WAVE = 4096
-FIG7_ITEMS = 1500        # paper_figs.fig7's n (3000, cut for time)
+FIG7_ITEMS = 500         # paper_figs.fig7's n (3000, cut for time)
 FIG7_CHECK = 300         # the prefix whose forest is held CPU vs card
 HAMMING_KEYS = 1 << 18   # stored keys the hamming row ranks against
 DEVICE = "cuda"
@@ -928,7 +951,7 @@ def phase_main(args):
 # ----------------------------------------------------------------------
 STREAM_WARM = 1024          # requests before the measured leg
 STREAM_REQUESTS = 32768     # the measured leg
-STREAM_PER_REQUEST = 1024   # the same stream, one PFOIndex call a request
+STREAM_PER_REQUEST = 256    # the same stream, one PFOIndex call a request
 #                             (cut for time)
 STREAM_FLUSH = 256          # requests a window (flush_every)
 STREAM_MIX = (0.5, 0.25, 0.125, 0.125)  # query / insert / delete / update
@@ -1397,7 +1420,7 @@ def phase_checkpoint(args, idx, hot: dict, rows: list) -> None:
 # ----------------------------------------------------------------------
 # phase 8: the distributed engine on a one-rank NCCL group
 # ----------------------------------------------------------------------
-DIST_ITEMS = 65536          # inserts before the mixed leg (cut for time)
+DIST_ITEMS = 32768          # inserts before the mixed leg (cut for time)
 DIST_REQUESTS = 8192        # the stream phase's mix, windows of STREAM_FLUSH
 DIST_BATCH = 4096           # rounds of the insert prefix (and max_batch)
 
@@ -1627,7 +1650,456 @@ def _dist_run(args, cfg, tmp, rows) -> dict:
 
 
 # ----------------------------------------------------------------------
-# phase 9: the paper's comparators on the hot path's items and queries
+# phase 9: the LM serving path (ServingEngine with the kNN-LM head)
+# ----------------------------------------------------------------------
+LM_ARCH = "smollm_135m"
+LM_PARITY_ARCHS = ("smollm_135m", "qwen2_7b")   # reduced, CPU == card
+#: the kNN-LM example's datastore (examples/knnlm_serving.py:26-28)
+LM_EXAMPLE = dict(L=4, C=2, m=2, l=32, t=4, max_candidates_total=128,
+                  max_leaves_per_tree=512, main_max_leaves_per_tree=2048,
+                  store_capacity=16384)
+#: ... at full width, its capacities raised until the fill neither seals
+#: nor overflows (PERF.md section 4): a 4,096-row round asks every tree
+#: for 2 x 4,096 x L / (L x 16 trees) = 512 leaves and nodes of headroom
+#: (the example's 128 nodes sealed every round), and one tree may hold a
+#: whole table's memories (hidden states crowd into few buckets)
+LM_DATASTORE = dict(LM_EXAMPLE, max_nodes_per_tree=8192,
+                    max_leaves_per_tree=40960, store_capacity=1 << 16)
+LM_FILL_SEQS = 32        # SyntheticLM sequences in the datastore, of ...
+LM_FILL_LEN = 1024       # ... 1,024 tokens: 32,768 memories (a real kNN-LM
+#                          datastore holds ~10^8; cut for chip time)
+LM_FILL_BATCH = 8        # sequences a forward pass
+LM_INSERT = 4096         # rows an insert call
+LM_ROUNDS, LM_REQUESTS, LM_PROMPT, LM_NEW = 3, 4, 16, 16
+LM_SERVE = dict(knn_lambda=0.3, knn_k=8)
+LM_MEMORIES = 96         # the reduced datastores' memories (CPU == card)
+LM_RECALL_SEQS = 8       # held-out sequences whose states query ...
+LM_RECALL_PER_SEQ = 32   # ... at 32 positions each: 256 recall queries
+MODEL_TOL = 1e-4         # f32 logits, CPU vs card (no TF32)
+BF16_TOL = 3e-2          # decode vs forward in bf16 (tests/test_arch_smoke.py)
+KNN_TOL = 1e-5           # kNN log-probs, host vs engine
+
+
+def lm_prompts(vocab: int, seed: int) -> list:
+    return [SyntheticLM(vocab, LM_PROMPT, LM_REQUESTS, seed=seed).batch(r)
+            ["tokens"] for r in range(LM_ROUNDS)]
+
+
+def lm_serve(model, params, device, proj, mem, nxt, prompts):
+    """The kNN-LM engine over the example's datastore on ``device``,
+    holding ``mem`` -> ``nxt``: each round's tokens, the final vocab map,
+    stats and state."""
+    pcfg = PFOConfig(dim=model.cfg.d_model, **LM_EXAMPLE)
+    idx = PFOIndex(pcfg, device=device, proj=proj)
+    idx.insert(np.arange(len(mem), dtype=np.int32), mem)
+    vmap = np.zeros(pcfg.store_capacity, np.int32)
+    vmap[:len(mem)] = nxt
+    eng = ServingEngine(model, params, ServeConfig(**LM_SERVE),
+                        pfo_index=idx, knn_vocab_map=vmap)
+    outs = [eng.generate({"tokens": p}, max_new=LM_NEW)[0] for p in prompts]
+    host = dict(tokens=[o.tolist() for o in outs],
+                vocab_map=eng.knn_vocab_map.tolist(), stats=idx.stats(),
+                syncs=idx.sync_count)
+    # compare_traces' layout; the tokens ride in ``host``, no query answers
+    return [], host, convert.state_to_numpy(idx.state)
+
+
+def phase_lm_trace(seed: int) -> dict:
+    """Reduced smollm_135m and qwen2_7b in f32, the same weights on the
+    CPU and on the card (TF32 off): prefill and decode logits within
+    MODEL_TOL; then three rounds of the kNN-LM engine over the example's
+    datastore on each, holding the same margin-safe memories (the CPU
+    model's hidden states), with every prompt's last hidden state
+    margin-safe and within 1e-5 across the two: the tokens, vocab map,
+    stats and every integer leaf of the datastores equal."""
+    out = {}
+    for arch in LM_PARITY_ARCHS:
+        cfg = dataclasses.replace(configs.get_config(arch, reduced=True),
+                                  dtype=torch.float32)
+        model = build_model(cfg)
+        cpu = model.init(torch.Generator().manual_seed(seed), device="cpu")
+        card = convert.params_from_numpy(cfg, convert.params_to_numpy(cpu),
+                                         device=DEVICE)
+        text = SyntheticLM(cfg.vocab_size, LM_PROMPT, 8, seed=seed).batch(0)
+        logits = {}
+        for dev, params in (("cpu", cpu), (DEVICE, card)):
+            toks = torch.from_numpy(text["tokens"]).to(dev)
+            cache = model.init_cache(len(toks), LM_PROMPT + 1, device=dev)
+            pl, cache, _ = model.prefill(params, {"tokens": toks}, cache)
+            dl, _ = model.decode_step(params, toks[:, :1], cache, LM_PROMPT)
+            logits[dev] = (pl.cpu(), dl.cpu())
+        err = max(float((a - b).abs().max())
+                  for a, b in zip(logits["cpu"], logits[DEVICE]))
+        check(err <= MODEL_TOL, f"{arch}: logits CPU vs card {err}")
+
+        pcfg = PFOConfig(dim=cfg.d_model, **LM_EXAMPLE)
+        proj = PFOIndex(pcfg, seed=seed, device="cpu").state.proj
+        data = SyntheticLM(cfg.vocab_size, 32, 8, seed=seed + 1).batch(0)
+        hid, _ = model.forward(cpu, {"tokens": torch.from_numpy(
+            data["tokens"])})
+        mem = hid.reshape(-1, cfg.d_model).numpy()
+        keep = safe_rows(mem, proj, pcfg)
+        mem = mem[keep][:LM_MEMORIES]
+        nxt = data["labels"].reshape(-1)[keep][:LM_MEMORIES]
+        check(len(mem) == LM_MEMORIES, f"{arch}: too few margin-safe states")
+        prompts = lm_prompts(cfg.vocab_size, seed + 2)
+        gap = 0.0
+        for p in prompts:
+            h = [model.forward(w, {"tokens": torch.from_numpy(p).to(d)})[0]
+                 [:, -1].cpu().numpy() for d, w in (("cpu", cpu),
+                                                    (DEVICE, card))]
+            gap = max(gap, float(np.abs(h[0] - h[1]).max()))
+            check(safe_rows(h[0], proj, pcfg).all(),
+                  f"{arch}: a prompt's last state is not margin-safe")
+        check(gap <= 1e-5, f"{arch}: prompt states differ by {gap}")
+        runs = [lm_serve(model, w, d, proj, mem, nxt, prompts)
+                for d, w in (("cpu", cpu), (DEVICE, card))]
+        n_int, _ = compare_traces(*runs, f"lm {arch}")
+        out[arch] = dict(logits_max_err=err, state_gap=gap,
+                         int_leaves_equal=n_int,
+                         tokens=runs[0][1]["tokens"][0][0])
+    return out
+
+
+def lm_greedy(model, params, prompt: np.ndarray, n_new: int) -> np.ndarray:
+    """The model's greedy continuation by the reference's rule (argmax of
+    log_softmax in the logits' dtype, src/repro/serving/engine.py:124,
+    132), one prefill and n_new - 1 decode steps."""
+    toks = torch.from_numpy(prompt).to(DEVICE)
+    cache = model.init_cache(len(prompt), prompt.shape[1] + n_new,
+                             device=DEVICE)
+    logits, cache, _ = model.prefill(params, {"tokens": toks}, cache)
+    out = []
+    for i in range(n_new):
+        tok = torch.argmax(engine_mod._log_softmax(logits[:, 0]), dim=-1)
+        out.append(tok.to(torch.int32))
+        if i + 1 < n_new:
+            logits, cache = model.decode_step(params, tok[:, None].to(
+                torch.int32), cache, prompt.shape[1] + i)
+    return torch.stack(out, 1).cpu().numpy()
+
+
+def host_knn_logits(ids, dists, vocab_map, vocab: int, temp: float):
+    """The reference's kNN head on the host, loop for loop
+    (src/repro/serving/engine.py:109-119)."""
+    logits = np.full((ids.shape[0], vocab), -1e30, np.float32)
+    for b in range(ids.shape[0]):
+        ok = ids[b] >= 0
+        if not ok.any():
+            continue
+        toks = vocab_map[ids[b][ok]]
+        w = np.exp(-temp * dists[b][ok])
+        w = w / max(w.sum(), 1e-9)
+        for tk, wi in zip(toks, w):
+            cur = np.exp(logits[b, tk]) if logits[b, tk] > -1e29 else 0.0
+            logits[b, tk] = np.log(cur + wi + 1e-20)
+    return logits
+
+
+def log_softmax_np(x: np.ndarray) -> np.ndarray:
+    x = x.astype(np.float64)
+    m = x.max(-1, keepdims=True)
+    return x - m - np.log(np.exp(x - m).sum(-1, keepdims=True))
+
+
+def decode_start(eng, prompt: np.ndarray):
+    """A prefill as ``generate`` runs it (kNN head off): (cache, token)."""
+    toks = torch.from_numpy(prompt).to(DEVICE)
+    cache = eng.model.init_cache(len(prompt), prompt.shape[1] + LM_NEW,
+                                 device=DEVICE)
+    logits, cache, _ = eng.prefill_step(eng.params, {"tokens": toks}, cache)
+    return cache, eng._next_token(logits[:, 0], None)
+
+
+def decode_steps(eng, cache, tok, pos: int) -> None:
+    """LM_NEW decode steps as ``generate`` runs them, with no sync inside
+    (for the sync count and the trace; the steps' times are the
+    engine's own, ``serving.decode_step_ms``)."""
+    for i in range(LM_NEW):
+        logits, cache = eng.decode_step(eng.params, tok[:, None], cache,
+                                        pos + i)
+        tok = eng._next_token(logits[:, 0], None)
+
+
+def tap_first(seen: dict, name: str):
+    """A ``tapped`` keeper: the arguments of ``name``'s first call in the
+    block, tensors cloned (the datastore updates its store in place)."""
+    def keep(*args, **kw):
+        if name not in seen:
+            seen[name] = tuple(a.clone() if torch.is_tensor(a) else a
+                               for a in args)
+    return keep
+
+
+def phase_lm(args, card: str, rows: list) -> tuple:
+    """The LM serving path at full width: smollm_135m (30 layers, d_model
+    576, 9 heads / 3 KV heads, d_ff 1536, vocab 49,152, tied, bf16,
+    random weights from a torch.Generator) behind ``ServingEngine`` with
+    the PFO kNN-LM head on the port's ``StreamEngine``, over a datastore
+    of LM_FILL_SEQS x LM_FILL_LEN memories (the model's hidden state at
+    each position of SyntheticLM text -> the next token).  The launch
+    counts are set to 0 just before the fill and read after the recall
+    oracle.  The kernels' inputs are tapped from the path (the first fill
+    call's and the first kNN query's lsh_hash, that query's gather_rank,
+    the recall oracle's pair_dist), each held against its plain version
+    and timed at those shapes; lsh_hash's and gather_rank's results go
+    into their kernel rows (``rows``) as ``lm``.  Returns the launches and
+    pair_dist's result at the oracle's shape."""
+    import warnings
+    t_phase = time.perf_counter()
+    seed = args.seed
+    t0 = time.perf_counter()
+    trace = phase_lm_trace(seed)
+    trace_s = time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg = configs.get_config(LM_ARCH)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(seed),
+                        device=DEVICE)
+    n_params = sum(p.numel() for p in params.parameters())
+    check(params.embed.dtype == torch.bfloat16 and params.embed.is_cuda,
+          "the full-width model is not bf16 on the card")
+
+    # decode == forward at full width
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 5)
+    toks = torch.randint(0, cfg.vocab_size, (LM_REQUESTS, LM_PROMPT + 1),
+                         generator=g, device=DEVICE, dtype=torch.int32)
+    cache = model.init_cache(LM_REQUESTS, LM_PROMPT + 1, device=DEVICE)
+    _, cache, _ = model.prefill(params, {"tokens": toks[:, :-1]}, cache)
+    dec, _ = model.decode_step(params, toks[:, -1:], cache, LM_PROMPT)
+    hidden, _ = model.forward(params, {"tokens": toks})
+    full = model.logits(params, hidden[:, -1:])
+    dec_err = float((dec.float() - full.float()).abs().max())
+    check(torch.allclose(dec.float(), full.float(), rtol=BF16_TOL,
+                         atol=BF16_TOL),
+          f"full width: decode differs from forward by {dec_err}")
+    del cache, hidden
+
+    # the datastore: its fill, with the launch counts from here
+    pcfg = PFOConfig(dim=cfg.d_model, **LM_DATASTORE)
+    idx = PFOIndex(pcfg, seed=seed, device=DEVICE)
+    text = SyntheticLM(cfg.vocab_size, LM_FILL_LEN, LM_FILL_SEQS,
+                       seed=seed).batch(0)
+    vmap = np.zeros(pcfg.store_capacity, np.int32)
+    n_mem = LM_FILL_SEQS * LM_FILL_LEN
+    vmap[:n_mem] = text["labels"].reshape(-1)
+    mem = []
+    fwd_s = ins_s = 0.0
+    fill_in, knn_in, oracle_in = {}, {}, []      # the kernels' tapped inputs
+    torch.cuda.synchronize()
+    ops.reset_launches()                          # counts start here ...
+    with tapped(ops, "lsh_hash", tap_first(fill_in, "lsh_hash")):
+        for s in range(0, LM_FILL_SEQS, LM_FILL_BATCH):
+            t0 = time.perf_counter()
+            hid, _ = model.forward(params, {"tokens": torch.from_numpy(
+                text["tokens"][s:s + LM_FILL_BATCH]).to(DEVICE)})
+            vecs = hid.float().reshape(-1, cfg.d_model)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for r in range(0, len(vecs), LM_INSERT):
+                base = s * LM_FILL_LEN + r
+                idx.insert(np.arange(base, base + LM_INSERT, dtype=np.int32),
+                           vecs[r:r + LM_INSERT])
+            torch.cuda.synchronize()
+            fwd_s += t1 - t0
+            ins_s += time.perf_counter() - t1
+            mem.append(vecs)
+            del hid
+    mem = torch.cat(mem)
+    fill_stats = idx.stats()
+    check(idx.n_inserted == n_mem, "the fill lost inserts")
+    check(fill_stats["overflow_events"] == 0,
+          f"the datastore overflowed: {fill_stats}")
+    fill_log = list(idx.maintenance_log)
+
+    # serving: LM_ROUNDS rounds of LM_REQUESTS requests, the kNN head's
+    # flushes and logits kept
+    stream = StreamEngine(idx)
+    stream.warmup()
+    eng = ServingEngine(model, params, ServeConfig(**LM_SERVE),
+                        pfo_stream=stream, knn_vocab_map=vmap)
+    prompts = lm_prompts(cfg.vocab_size, seed + 2)
+    flushes, knn_calls = [], []       # every flush; (hidden, flush#, out)
+    real_flush, real_knn = stream.flush, eng._knn_logits
+
+    def keep_flush():
+        flushes.append(real_flush())
+        return flushes[-1]
+
+    def keep_knn(hidden, vocab):
+        n0 = len(flushes)
+        got = real_knn(hidden, vocab)
+        knn_calls.append((hidden, n0, got))
+        return got
+
+    stream.flush, eng._knn_logits = keep_flush, keep_knn
+    before = stream.stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        with tapped(ops, "lsh_hash", tap_first(knn_in, "lsh_hash")), \
+                tapped(ops, "gather_rank", tap_first(knn_in, "gather_rank")):
+            served = [eng.generate({"tokens": p}, max_new=LM_NEW)
+                      for p in prompts]
+    finally:
+        del stream.flush, eng._knn_logits
+    serve_s = time.perf_counter() - t0
+    after = stream.stats()
+    snap = eng.obs.snapshot()
+    check(len(knn_calls) == LM_ROUNDS, "the kNN head ran once a round")
+
+    # the kNN log-probs, recomputed on the host from each flush
+    knn_err, knn_found = 0.0, 0
+    for _, n0, got in knn_calls:
+        res = flushes[n0]
+        tickets = sorted(res)
+        ids = np.stack([res[t][0] for t in tickets])
+        dists = np.stack([res[t][1] for t in tickets])
+        knn_found += int((ids[:, 0] >= 0).sum())
+        want = log_softmax_np(host_knn_logits(
+            ids, dists, eng.knn_vocab_map, cfg.vocab_size,
+            eng.scfg.knn_temp))
+        have = log_softmax_np(got.cpu().numpy())
+        knn_err = max(knn_err, float(np.abs(want - have).max()))
+    check(knn_found > 0, "no kNN query found a neighbour")
+    check(knn_err <= KNN_TOL, f"kNN log-probs differ by {knn_err}")
+
+    # knn_lambda = 0: the engine's tokens are the model's greedy ones
+    plain = ServingEngine(model, params, ServeConfig(knn_lambda=0.0))
+    p_out, _ = plain.generate({"tokens": prompts[0]}, max_new=LM_NEW,
+                              insert_online=False)
+    check(np.array_equal(p_out, lm_greedy(model, params, prompts[0],
+                                          LM_NEW)),
+          "knn_lambda=0: the tokens are not the model's argmax")
+    knn_moved = int((p_out[:, 0] != served[0][0][:, 0]).sum())
+
+    # each request's online memory comes back first for its own vector,
+    # unless the ranking budget cut its id
+    online = []
+    for p in prompts:
+        c = model.init_cache(LM_REQUESTS, LM_PROMPT + LM_NEW, device=DEVICE)
+        online.append(model.prefill(params, {"tokens": torch.from_numpy(
+            p).to(DEVICE)}, c)[2].float())
+    online = torch.cat(online)
+    self_ids = np.arange(n_mem, n_mem + len(online), dtype=np.int32)
+
+    def self_queries():
+        tickets = [stream.query(v, k=LM_SERVE["knn_k"])
+                   for v in online.cpu().numpy()]
+        res = stream.flush()
+        return np.stack([res[t][0] for t in tickets])
+
+    got_self, _, ranked = tap_ranking(self_queries)
+    missed = cut_criterion(self_ids, got_self,
+                           ranked["cids"][:len(self_ids)].cpu().numpy())
+    check(not missed.any(), f"{int(missed.sum())} online memories did not "
+          "come back first for their own vectors")
+
+    # recall@k of the kNN answers against BruteForce (pair_dist)
+    held = SyntheticLM(cfg.vocab_size, 64, LM_RECALL_SEQS,
+                       seed=seed + 3).batch(0)["tokens"]
+    hq, _ = model.forward(params, {"tokens": torch.from_numpy(held).to(
+        DEVICE)})
+    pick = np.random.default_rng(seed).choice(64, LM_RECALL_PER_SEQ,
+                                              replace=False)
+    q = hq[:, torch.as_tensor(pick, device=DEVICE)].float().reshape(
+        -1, cfg.d_model)
+    tickets = [stream.query(v, k=LM_SERVE["knn_k"]) for v in q.cpu().numpy()]
+    res = stream.flush()
+    got = np.stack([res[t][0] for t in tickets])
+    bf = BruteForce(pcfg, device=DEVICE)
+    bf.insert(np.arange(n_mem + len(online), dtype=np.int32),
+              torch.cat([mem, online]))
+    with tapped(ops, "pair_dist_sq", lambda qq, xx: oracle_in.append(
+            (qq, xx))):
+        truth, truth_d = bf.query(q, LM_SERVE["knn_k"])
+    got_d = np.stack([res[t][1] for t in tickets])
+    recall = float(recall_at(got, truth, LM_SERVE["knn_k"]).mean())
+    ratio = error_ratio(got_d, truth_d, LM_SERVE["knn_k"])
+    launches = dict(ops.LAUNCHES)                 # ... and stop here
+    for name in ("lsh_hash", "gather_rank", "pair_dist"):
+        check(launches[name] > 0, f"the lm phase launched no {name}: "
+              f"{launches}")
+
+    # each kernel against its plain version at the shapes this path gave
+    # it (d = 576), timed there, after the counts were read
+    x, a_proj = fill_in["lsh_hash"][:2]
+    check(list(x.shape) == [LM_INSERT, cfg.d_model],
+          f"lsh_hash tapped off the fill's shape: {list(x.shape)}")
+    hash_fill = lsh_hash_at(x, a_proj)
+    x, a_proj = knn_in["lsh_hash"][:2]
+    check(x.shape[1] == cfg.d_model, "the kNN query's lsh_hash tap")
+    hash_query = lsh_hash_at(x, a_proj)
+    rank_knn = gather_rank_at(*knn_in["gather_rank"][:5])
+    check(rank_knn["shape"][1:] == [pcfg.max_candidates_total, cfg.d_model],
+          f"gather_rank tapped off the kNN query: {rank_knn['shape']}")
+    check(len(oracle_in) == 1, "the recall oracle's pair_dist tap")
+    pair_oracle = pair_dist_at(oracle_in[0])
+    del fill_in, knn_in, oracle_in, x, a_proj
+    for row, name, lm_row in (
+            (rows[0], "lsh_hash", dict(fill_insert=hash_fill,
+                                       knn_query=hash_query)),
+            (rows[1], "gather_rank", dict(knn_query=rank_knn))):
+        check(row["name"] == name, f"kernel row {row['name']} != {name}")
+        row.setdefault("launches_by_path", {})["lm"] = launches[name]
+        row["lm"] = dict(lm_row, launches=launches[name])
+
+    # the syncs no one counted (set_sync_debug_mode) in decode steps with
+    # no sync of their own, then the same steps traced
+    cache, tok = decode_start(eng, prompts[0])
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            decode_steps(eng, cache, tok, LM_PROMPT)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    syncs = sum(SYNC_WARNING in str(w.message) for w in caught)
+    cache, tok = decode_start(eng, prompts[1])
+    traced = device_profile(lambda: decode_steps(eng, cache, tok, LM_PROMPT))
+    del cache, tok
+    step_ms = hist(snap, "serving.decode_step_ms")
+    emit(phase="lm", card=card, arch=LM_ARCH, dtype="bfloat16",
+         params=n_params, layers=cfg.n_layers, d_model=cfg.d_model,
+         vocab=cfg.vocab_size, cpu_vs_card=trace, cpu_vs_card_s=trace_s,
+         decode_vs_forward_max_err=dec_err,
+         datastore=dict(config=LM_DATASTORE, dim=pcfg.dim, memories=n_mem,
+                        fill_stats=fill_stats, fill_maintenance=fill_log,
+                        final_stats=idx.stats()),
+         fill_s=fwd_s + ins_s, fill_forward_s=fwd_s, fill_insert_s=ins_s,
+         inserts_per_s=n_mem / ins_s,
+         serve=dict(rounds=LM_ROUNDS, requests=LM_REQUESTS,
+                    prompt=LM_PROMPT, new=LM_NEW, **LM_SERVE, s=serve_s,
+                    first_tokens=served[0][0][:, 0].tolist()),
+         prefill_ms=hist(snap, "serving.prefill_ms"),
+         decode_step_ms=step_ms, knn_ms=hist(snap, "serving.knn_ms"),
+         decode_tokens_per_s=LM_REQUESTS / (step_ms["mean"] / 1e3),
+         readbacks_per_generate=eng.n_readbacks / LM_ROUNDS,
+         stream_readbacks_per_generate=(after["readbacks"]
+                                        - before["readbacks"]) / LM_ROUNDS,
+         implicit_syncs_per_decode_step=syncs / LM_NEW,
+         traced_decode_steps=dict(traced, steps=LM_NEW),
+         knn_logprob_max_err=knn_err, knn_lambda0_equal=True,
+         knn_queries_with_neighbours=knn_found,
+         first_tokens_moved_by_knn=knn_moved,
+         self_hits=dict(queries=len(self_ids),
+                        rank0=int((got_self[:, 0] == self_ids).sum()),
+                        cut_by_budget=int((got_self[:, 0] != self_ids)
+                                          .sum())),
+         recall_at_k=recall, recall_queries=len(q), error_ratio=ratio,
+         answers_per_query=float((got >= 0).sum(1).mean()),
+         launches={k: launches[k] for k in ("lsh_hash", "gather_rank",
+                                            "pair_dist")},
+         peak_mem_bytes=torch.cuda.max_memory_allocated(),
+         s=time.perf_counter() - t_phase)
+    return launches, pair_oracle
+
+
+# ----------------------------------------------------------------------
+# phase 10: the paper's comparators on the hot path's items and queries
 # ----------------------------------------------------------------------
 def run_comparator(index, ids, vecs, q, batch: int):
     """Insert (ids, vecs) in batches and answer q once, with the launch
@@ -1773,7 +2245,7 @@ def phase_baselines(args, hot):
 
 
 # ----------------------------------------------------------------------
-# phase 10: the cold path at glove-100 width
+# phase 11: the cold path at glove-100 width
 # ----------------------------------------------------------------------
 COLD_TOMBSTONES = 1 << 17
 COLD_BUDGET = 256
@@ -1953,7 +2425,7 @@ def phase_cold_main(args):
 
 
 # ----------------------------------------------------------------------
-# phase 11: each kernel against its plain version, timed, with its bound
+# phase 12: each kernel against its plain version, timed, with its bound
 # ----------------------------------------------------------------------
 def hash_flips(x, a):
     """lsh_hash's bits on the card against its plain version and against
@@ -2097,12 +2569,13 @@ def pair_dist_at(xin) -> dict:
         library_ms=cuda_ms(lambda: torch.cdist(qn, xn).square(), iters=5))
 
 
-def pair_dist_row(hot: dict, cold: dict, launches: dict) -> dict:
-    """pair_dist at both of its launches on the path, from
-    :func:`pair_dist_at`: the hot oracle's 1024 queries against 500,000
-    items (the row's own numbers, measured before the cold path runs) and
-    the cold oracle's against the cold path's live items, N % 4 != 0
-    (``cold_oracle``).  ``launches`` counts it by path."""
+def pair_dist_row(hot: dict, cold: dict, lm: dict, launches: dict) -> dict:
+    """pair_dist at its launches on the paths, from :func:`pair_dist_at`:
+    the hot oracle's 1024 queries against 500,000 items (the row's own
+    numbers, measured before the cold path runs), the cold oracle's
+    against the cold path's live items, N % 4 != 0 (``cold_oracle``), and
+    the LM datastore's recall oracle at d = 576 (``lm_oracle``).
+    ``launches`` counts it by path."""
     return dict(
         name="pair_dist", route="cuda", design="3xtf32-mma",
         source="src/repro_torch/kernels/csrc/pair_dist.cu",
@@ -2112,7 +2585,7 @@ def pair_dist_row(hot: dict, cold: dict, launches: dict) -> dict:
         timed="through pair_dist_cuda, norms included; kernel_ms: "
               "torch.profiler's kernel time",
         library_call="torch.cdist(q, x).square()",
-        cold_oracle=cold)
+        cold_oracle=cold, lm_oracle=dict(lm, launches=launches["lm"]))
 
 
 def rank_dots_at(xin) -> dict:
@@ -2291,9 +2764,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_dist(args, rows)
     torch.cuda.empty_cache()
+    lm_launches, lm_pair = phase_lm(args, card, rows)
+    torch.cuda.empty_cache()
     hot_pair = pair_dist_at(hot["oracle_in"])
     feeds = phase_baselines(args, hot)
-    pair_launches = dict(hot_oracle=hot["oracle_launches"])
+    pair_launches = dict(hot_oracle=hot["oracle_launches"],
+                         lm=lm_launches["pair_dist"])
     rows.append(rank_dots_row(
         rank_dots_at(feeds["zorder_dots_in"]),
         rank_dots_at(feeds["multiprobe_dots_in"]),
@@ -2306,7 +2782,7 @@ def main() -> int:
     rows.insert(2, staged_row(ranked, cold_launches, cold_config().metric))
     del ranked
     torch.cuda.empty_cache()
-    rows.insert(3, pair_dist_row(hot_pair, pair_dist_at(cold_in),
+    rows.insert(3, pair_dist_row(hot_pair, pair_dist_at(cold_in), lm_pair,
                                  pair_launches))
     check(not torch.backends.cuda.matmul.allow_tf32,
           "float32 products ran in TF32 during the run")

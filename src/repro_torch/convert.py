@@ -8,6 +8,12 @@ index copies ``state.proj`` out of it (as numpy) and hands it over with
 dicts of numpy arrays in the JAX package's dtypes (uint32 keys and
 filters, f32 payload pages), so every field of the two systems can be
 compared — the cold tier's ``ColdState`` included (``None`` when off).
+
+:func:`params_from_numpy` and :func:`params_to_numpy` carry a model's
+weights across: the JAX package's param pytree (each group's leaves
+stacked over a leading ``layers`` axis) to the port's
+``Transformer`` (one module a layer) and back, so both packages can run
+on the same weights.
 """
 from __future__ import annotations
 
@@ -19,6 +25,8 @@ from .core.coldtier import ColdCache, ColdRouting, ColdState
 from .core.hash_tree import TreeState
 from .core.index import PFOState
 from .core.store import DenseStore
+from .models.common import ModelConfig
+from .models.transformer import Transformer
 
 #: fields that hold uint32 values (int64 in the port); the port's tree
 #: arenas are int64 too, where the reference's are int32
@@ -97,3 +105,39 @@ def state_from_numpy(tree, device=None) -> PFOState:
                     **{n: tensor(n, top[n]) for n in _SCALARS},
                     proj=proj_from_numpy(_fields(top["proj"]), device),
                     cold=cold)
+
+
+def _param_tensor(a, device):
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":            # ml_dtypes' bfloat16: bits
+        t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a.copy())
+    return t.to(device)
+
+
+def _map_tree(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map_tree(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map_tree(v, fn) for v in tree]
+    return fn(tree)
+
+
+def params_from_numpy(cfg: ModelConfig, tree, device=None) -> Transformer:
+    """The JAX package's param pytree (arrays as numpy, or anything
+    ``np.asarray`` takes; bfloat16 arrays keep their bits) -> the port's
+    ``Transformer`` on ``device`` (CPU when None) in the arrays' dtypes,
+    each group's ``layers`` axis unstacked."""
+    return Transformer(cfg, _map_tree(tree,
+                                      lambda a: _param_tensor(a, device)))
+
+
+def params_to_numpy(model: Transformer) -> dict:
+    """:func:`params_from_numpy`'s inverse: the reference's pytree layout
+    (groups stacked over ``layers``) as numpy arrays; bfloat16 comes back
+    as float32 (exact), numpy having no bfloat16."""
+    def leaf(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return _map_tree(model.tree(), leaf)

@@ -1,0 +1,218 @@
+"""Attention: GQA (opt. bias) with its local/chunked variants.
+
+The port's copy of the JAX package's ``models/attention.py`` (MLA waits:
+``ROADMAP.md`` Queue 1).  Full-sequence attention is computed
+*blockwise*: an online softmax over KV chunks, as einsums in float32,
+in the reference's order and with its masked score ``NEG_INF = -1e30``
+(not ``-inf``), so a fully masked chunk gives p = 1 on every lane until
+a later chunk's max rescales it away.  No fused attention operator is
+used: it would change both the arithmetic and the masking.
+
+Cache: ``KVCache(k, v, length)`` with k, v (B, S, KV, head_dim) and
+``length`` a host int (the filled prefix).  A step writes its keys and
+values into the cache's tensors in place at ``length`` and returns the
+cache with the new length; past ``S`` it raises (the reference's
+``dynamic_update_slice`` would clamp the start and overwrite the tail).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+from .common import BlockDef, ModelConfig, ParamSpec, apply_rope, dense, \
+    rope_freqs
+
+NEG_INF = -1e30
+
+
+# ----------------------------------------------------------------------
+# parameter declarations
+# ----------------------------------------------------------------------
+def gqa_param_specs(cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    sp = {
+        "wq": ParamSpec((d, cfg.q_features), ("embed", "q_features")),
+        "wk": ParamSpec((d, cfg.kv_features), ("embed", "kv_features")),
+        "wv": ParamSpec((d, cfg.kv_features), ("embed", "kv_features")),
+        "wo": ParamSpec((cfg.q_features, d), ("q_features", "embed")),
+    }
+    if cfg.qkv_bias:
+        sp["bq"] = ParamSpec((cfg.q_features,), ("q_features",), "zeros")
+        sp["bk"] = ParamSpec((cfg.kv_features,), ("kv_features",), "zeros")
+        sp["bv"] = ParamSpec((cfg.kv_features,), ("kv_features",), "zeros")
+    return sp
+
+
+def cross_param_specs(cfg: ModelConfig) -> dict:
+    return gqa_param_specs(dataclasses.replace(cfg, qkv_bias=False))
+
+
+# ----------------------------------------------------------------------
+# blockwise softmax attention (flash-style, in plain tensor ops)
+# ----------------------------------------------------------------------
+def _mask(q_pos: torch.Tensor, kv_pos: torch.Tensor, *, causal: bool,
+          window: int, chunk_align: int, kv_len_valid: int | None):
+    """(Tq, Skv) bool: which keys each query position may attend."""
+    mask = torch.ones((q_pos.shape[0], kv_pos.shape[0]), dtype=torch.bool,
+                      device=q_pos.device)
+    if causal:
+        mask &= q_pos[:, None] >= kv_pos[None, :]
+    if window:
+        mask &= q_pos[:, None] - kv_pos[None, :] < window
+    if chunk_align:
+        mask &= kv_pos[None, :] >= torch.div(
+            q_pos[:, None], chunk_align, rounding_mode="floor") * chunk_align
+    if kv_len_valid is not None:
+        mask &= kv_pos[None, :] < kv_len_valid
+    return mask
+
+
+def blockwise_attention(q, k, v, *, causal: bool, q_offset: int = 0,
+                        kv_chunk: int = 1024, window: int = 0,
+                        chunk_align: int = 0, kv_len_valid: int | None = None,
+                        scale: float | None = None) -> torch.Tensor:
+    """Online-softmax attention over KV chunks.
+
+    q (B,Tq,H,Dk); k (B,S,KV,Dk); v (B,S,KV,Dv).  ``q_offset``: absolute
+    position of q[0].  ``window``: sliding local window; ``chunk_align``:
+    llama4 aligned-chunk locality.  ``kv_len_valid`` masks ragged cache
+    fill.  Peak score memory is (B,Tq,H,kv_chunk).
+    """
+    b, tq, h, dk = q.shape
+    s_total, kv_heads = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
+    groups = h // kv_heads
+    scale = scale if scale is not None else 1.0 / (dk ** 0.5)
+    n_chunks = max(s_total // kv_chunk, 1)
+    kc = s_total // n_chunks
+    if kc * n_chunks != s_total:
+        raise ValueError(f"kv length {s_total} must split into chunks "
+                         f"(kv_chunk={kv_chunk})")
+    dev = q.device
+    q_pos = q_offset + torch.arange(tq, device=dev)
+    qg = q.reshape(b, tq, kv_heads, groups, dk).float()
+
+    o = torch.zeros((b, tq, kv_heads, groups, dv), dtype=torch.float32,
+                    device=dev)
+    m = torch.full((b, tq, kv_heads, groups), NEG_INF, dtype=torch.float32,
+                   device=dev)
+    l = torch.zeros((b, tq, kv_heads, groups), dtype=torch.float32,
+                    device=dev)
+    for c in range(n_chunks):
+        kci = k[:, c * kc:(c + 1) * kc].float()
+        vci = v[:, c * kc:(c + 1) * kc].float()
+        kv_pos = c * kc + torch.arange(kc, device=dev)
+        mask = _mask(q_pos, kv_pos, causal=causal, window=window,
+                     chunk_align=chunk_align, kv_len_valid=kv_len_valid)
+        s = torch.einsum("btkgd,bskd->btkgs", qg, kci) * scale
+        s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
+        mc = torch.amax(s, dim=-1)
+        p = torch.exp(s - mc[..., None])
+        lc = torch.sum(p, dim=-1)
+        oc = torch.einsum("btkgs,bskd->btkgd", p, vci)
+
+        m_new = torch.maximum(m, mc)
+        a1 = torch.exp(m - m_new)
+        a2 = torch.exp(mc - m_new)
+        o = o * a1[..., None] + oc * a2[..., None]
+        l = l * a1 + lc * a2
+        m = m_new
+    out = o / torch.clamp_min(l[..., None], 1e-30)
+    return out.reshape(b, tq, h, dv).to(q.dtype)
+
+
+def dense_decode_attention(q, k, v, *, q_pos: int, window: int = 0,
+                           chunk_align: int = 0,
+                           kv_len_valid: int | None = None,
+                           scale: float | None = None) -> torch.Tensor:
+    """Single-token decode attention over the whole cache, one flat
+    einsum and a softmax (no chunk reshaping)."""
+    b, tq, h, dk = q.shape
+    assert tq == 1
+    s, kv_heads = k.shape[1], k.shape[2]
+    groups = h // kv_heads
+    dv = v.shape[-1]
+    scale = scale if scale is not None else 1.0 / (dk ** 0.5)
+    qg = q.reshape(b, kv_heads, groups, dk).float()
+
+    sc = torch.einsum("bkgd,bskd->bkgs", qg, k.float()) * scale
+    kv_pos = torch.arange(s, device=q.device)
+    mask = kv_pos <= q_pos
+    if window:
+        mask &= q_pos - kv_pos < window
+    if chunk_align:
+        mask &= kv_pos >= (q_pos // chunk_align) * chunk_align
+    if kv_len_valid is not None:
+        mask &= kv_pos < kv_len_valid
+    sc = torch.where(mask[None, None, None, :], sc, NEG_INF)
+    p = torch.softmax(sc, dim=-1)
+    o = torch.einsum("bkgs,bskd->bkgd", p, v.float())
+    return o.reshape(b, 1, h, dv).to(q.dtype)
+
+
+# ----------------------------------------------------------------------
+# GQA block (prefill + decode)
+# ----------------------------------------------------------------------
+class KVCache(NamedTuple):
+    k: torch.Tensor   # (B, S, KV, D)
+    v: torch.Tensor
+    length: int       # filled prefix (host int: no readback a layer)
+
+
+def _impl_kwargs(blk: BlockDef) -> dict:
+    if blk.attn_impl == "local":
+        return {"window": blk.window}
+    if blk.attn_impl == "chunked":
+        return {"chunk_align": blk.window}
+    return {}
+
+
+def gqa_apply(p, cfg: ModelConfig, blk: BlockDef, x: torch.Tensor,
+              positions: torch.Tensor, cache: KVCache | None = None):
+    """Causal self-attention of x (B,T,D).  Returns (out, new_cache)."""
+    b, t, _ = x.shape
+    q = dense(x, p["wq"], p.get("bq")).reshape(b, t, cfg.n_heads,
+                                               cfg.head_dim)
+    k = dense(x, p["wk"], p.get("bk")).reshape(b, t, cfg.n_kv_heads,
+                                               cfg.head_dim)
+    v = dense(x, p["wv"], p.get("bv")).reshape(b, t, cfg.n_kv_heads,
+                                               cfg.head_dim)
+    if blk.rope == "rope":
+        cos, sin = rope_freqs(cfg.head_dim, cfg.rope_theta, positions)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+
+    new_cache = None
+    if cache is not None:
+        start, max_len = cache.length, cache.k.shape[1]
+        if start + t > max_len:
+            raise ValueError(f"KV cache full: {start} + {t} positions past "
+                             f"max_len {max_len}")
+        cache.k[:, start:start + t] = k.to(cache.k.dtype)
+        cache.v[:, start:start + t] = v.to(cache.v.dtype)
+        new_cache = KVCache(cache.k, cache.v, start + t)
+        if t == 1:
+            o = dense_decode_attention(
+                q, cache.k, cache.v, q_pos=start, kv_len_valid=start + 1,
+                **_impl_kwargs(blk))
+        else:
+            o = blockwise_attention(
+                q, cache.k, cache.v, causal=True, q_offset=start,
+                kv_chunk=min(1024, max_len), kv_len_valid=start + t,
+                **_impl_kwargs(blk))
+    else:
+        o = blockwise_attention(
+            q, k, v, causal=True, q_offset=0,
+            kv_chunk=min(1024, max(k.shape[1], 1)), **_impl_kwargs(blk))
+    out = dense(o.reshape(b, t, cfg.q_features), p["wo"])
+    return out, new_cache
+
+
+def gqa_init_cache(cfg: ModelConfig, blk: BlockDef, batch: int,
+                   max_len: int, dtype: torch.dtype, device) -> KVCache:
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device),
+                   length=0)

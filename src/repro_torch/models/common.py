@@ -1,0 +1,198 @@
+"""Shared model machinery: config IR, declarative params, norms, rope.
+
+The port's copy of the JAX package's ``models/common.py``.  A model is
+a list of *block groups* ``(pattern, repeat)``, where the pattern is a
+short tuple of BlockDefs.  Params are *declared* (shape + logical axes
++ initializer) by :class:`ParamSpec` trees whose group leaves carry a
+leading ``layers`` axis, as the reference stacks them; the port's
+module (``transformer.Transformer``) unstacks that axis into one module
+a layer.
+
+Numerics follow the reference step by step (dtypes included): norms and
+rope compute in float32 and cast back, ``gelu`` is the tanh form
+(``jax.nn.gelu``'s default).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+
+
+# ----------------------------------------------------------------------
+# block/config IR
+# ----------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class BlockDef:
+    kind: str = "attn"        # "attn" | "mla" | "rwkv" | "rglru"
+    attn_impl: str = "full"   # "full" | "local" | "chunked"
+    rope: str = "rope"        # "rope" | "nope"
+    window: int = 0           # local window / chunk size
+    moe: bool = False
+    cross_attn: bool = False  # enc-dec decoder blocks
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str = "model"
+    family: str = "decoder"        # "decoder" | "encdec"
+    n_layers: int = 2              # informational; groups are canonical
+    d_model: int = 128
+    n_heads: int = 4
+    n_kv_heads: int = 4
+    head_dim: int = 32
+    d_ff: int = 512
+    vocab_size: int = 1024
+    groups: tuple = ()             # ((BlockDef,...), repeat) tuples
+    enc_groups: tuple = ()         # encoder stack for enc-dec
+    act: str = "silu"              # "silu" | "gelu" | "relu2" | "geglu"
+    norm: str = "rmsnorm"
+    qkv_bias: bool = False
+    tie_embeddings: bool = False
+    rope_theta: float = 10000.0
+    # MoE
+    n_experts: int = 0
+    top_k: int = 1
+    n_shared_experts: int = 0
+    moe_d_ff: int = 0
+    capacity_factor: float = 1.25
+    moe_impl: str = "gspmd"        # "gspmd" | "shardmap"
+    # MLA (deepseek-v2)
+    kv_lora_rank: int = 0
+    q_lora_rank: int = 0
+    qk_nope_dim: int = 0
+    qk_rope_dim: int = 0
+    v_head_dim: int = 0
+    # RG-LRU
+    lru_width: int = 0
+    conv_width: int = 4
+    # frontend stub
+    frontend: str | None = None    # None | "patch" | "audio"
+    frontend_len: int = 0          # stub sequence length
+    enc_len: int = 0               # encoder length for enc-dec
+    # numerics
+    dtype: torch.dtype = torch.bfloat16   # compute/weight dtype
+    norm_eps: float = 1e-6
+
+    @property
+    def q_features(self) -> int:
+        return self.n_heads * self.head_dim
+
+    @property
+    def kv_features(self) -> int:
+        return self.n_kv_heads * self.head_dim
+
+    def layer_count(self) -> int:
+        n = sum(len(p) * r for p, r in self.groups)
+        n += sum(len(p) * r for p, r in self.enc_groups)
+        return n
+
+
+# ----------------------------------------------------------------------
+# declarative params
+# ----------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    shape: tuple
+    axes: tuple                    # logical axis names (len == ndim)
+    init: str = "normal"           # "normal" | "zeros" | "ones"
+    scale: float = 1.0             # stddev multiplier for "normal"
+
+
+def _fan_in(shape: tuple) -> int:
+    # contraction dim heuristics: last-but-one for matrices
+    if len(shape) >= 2:
+        return shape[-2]
+    return max(shape[0], 1)
+
+
+def map_specs(tree, fn):
+    """``fn`` applied to every ParamSpec of a nested dict/list tree, in
+    sorted key order (the order ``jax.tree`` flattens a dict in)."""
+    if isinstance(tree, ParamSpec):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: map_specs(tree[k], fn) for k in sorted(tree)}
+    return [map_specs(v, fn) for v in tree]
+
+
+def init_params(spec_tree, generator: torch.Generator,
+                dtype: torch.dtype) -> dict:
+    """Real tensors for a spec tree, drawn on the generator's device:
+    normal leaves are float32 draws times ``scale / sqrt(fan_in)`` (fan_in
+    the second-to-last dimension), cast to ``dtype``."""
+    dev = generator.device
+
+    def one(s: ParamSpec) -> torch.Tensor:
+        if s.init == "zeros":
+            return torch.zeros(s.shape, dtype=dtype, device=dev)
+        if s.init == "ones":
+            return torch.ones(s.shape, dtype=dtype, device=dev)
+        std = s.scale / (_fan_in(s.shape) ** 0.5)
+        return (torch.randn(s.shape, generator=generator,
+                            dtype=torch.float32, device=dev) * std).to(dtype)
+
+    return map_specs(spec_tree, one)
+
+
+# ----------------------------------------------------------------------
+# numerics
+# ----------------------------------------------------------------------
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
+
+
+def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+              eps: float) -> torch.Tensor:
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * w + b
+
+
+def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")
+
+
+def _relu2(x: torch.Tensor) -> torch.Tensor:
+    return torch.square(F.relu(x))
+
+
+def activation(name: str):
+    if name == "silu":
+        return F.silu
+    if name == "gelu":
+        return _gelu_tanh
+    if name == "relu2":
+        return _relu2
+    raise ValueError(name)
+
+
+def rope_freqs(head_dim: int, theta: float, positions: torch.Tensor):
+    """positions (...,) -> cos/sin (..., head_dim//2), float32."""
+    half = head_dim // 2
+    freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                          device=positions.device) / half))
+    ang = positions[..., None].float() * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x (..., T, H, D); cos/sin (..., T, D//2) broadcast over heads."""
+    half = x.shape[-1] // 2
+    c = cos[..., None, :]
+    s = sin[..., None, :]
+    xf1, xf2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([xf1 * c - xf2 * s, xf2 * c + xf1 * s],
+                     dim=-1).to(x.dtype)
+
+
+def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None):
+    y = torch.matmul(x, w)
+    if b is not None:
+        y = y + b
+    return y

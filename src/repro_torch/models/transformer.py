@@ -1,0 +1,326 @@
+"""Model assembly: block groups -> per-layer modules -> LM.
+
+The port's copy of the JAX package's ``models/transformer.py`` for the
+dense GQA decoders: embed -> [block groups] -> final norm -> (tied or
+separate) LM head.  The reference stacks each group's params over a
+``layers`` axis and scans them; here :class:`Transformer` holds one
+module a layer (an ``nn.ModuleList`` a group) and :func:`run_groups` is a
+Python loop over the layers, with no remat: this is the serving path.
+The patch frontend is the reference's stub (precomputed patch
+embeddings arrive as inputs).
+
+Not ported yet (``ROADMAP.md`` Queue 1): MoE blocks, MLA, RWKV-6,
+RG-LRU, the encoder and cross-attention, and ``lm_loss`` (training).
+Building a model that needs one raises ``NotImplementedError``.
+
+The functional API takes ``params`` as a :class:`Transformer` or as the
+nested dict :func:`_cast_params` makes of one; ``batch`` holds tensors
+on the params' device.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from . import attention as attn_mod
+from .common import BlockDef, ModelConfig, ParamSpec, activation, dense, \
+    layernorm, map_specs, rmsnorm
+
+_QUEUE = "not ported yet (ROADMAP.md Queue 1)"
+
+
+def _check_supported(blk: BlockDef) -> None:
+    if blk.kind != "attn":
+        raise NotImplementedError(f"{blk.kind} blocks are {_QUEUE}")
+    if blk.moe:
+        raise NotImplementedError(f"MoE blocks are {_QUEUE}")
+    if blk.cross_attn:
+        raise NotImplementedError(f"cross-attention blocks are {_QUEUE}")
+
+
+# ======================================================================
+# parameter declaration (the reference's stacked spec tree)
+# ======================================================================
+def _norm_specs(cfg: ModelConfig, name: str) -> dict:
+    d = cfg.d_model
+    sp = {f"{name}_w": ParamSpec((d,), ("embed",), "ones")}
+    if cfg.norm == "layernorm":
+        sp[f"{name}_b"] = ParamSpec((d,), ("embed",), "zeros")
+    return sp
+
+
+def _apply_norm(cfg: ModelConfig, p, name: str, x: torch.Tensor):
+    if cfg.norm == "layernorm":
+        return layernorm(x, p[f"{name}_w"], p[f"{name}_b"], cfg.norm_eps)
+    return rmsnorm(x, p[f"{name}_w"], cfg.norm_eps)
+
+
+def mlp_param_specs(cfg: ModelConfig) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    sp = {"wi": ParamSpec((d, f), ("embed", "ffn")),
+          "wo": ParamSpec((f, d), ("ffn", "embed"))}
+    if cfg.act in ("silu", "geglu"):
+        sp["wg"] = ParamSpec((d, f), ("embed", "ffn"))
+    return sp
+
+
+def mlp_apply(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    if cfg.act in ("silu", "geglu"):
+        act = activation("silu" if cfg.act == "silu" else "gelu")
+        h = act(dense(x, p["wg"])) * dense(x, p["wi"])
+    else:
+        h = activation(cfg.act)(dense(x, p["wi"]))
+    return dense(h, p["wo"])
+
+
+def block_param_specs(cfg: ModelConfig, blk: BlockDef) -> dict:
+    _check_supported(blk)
+    sp: dict = {}
+    sp.update(_norm_specs(cfg, "ln1"))
+    sp["attn"] = attn_mod.gqa_param_specs(cfg)
+    sp.update(_norm_specs(cfg, "ln2"))
+    sp["mlp"] = mlp_param_specs(cfg)
+    return sp
+
+
+def _stack_specs(spec_tree, repeat: int):
+    return map_specs(spec_tree, lambda s: ParamSpec(
+        (repeat, *s.shape), ("layers", *s.axes), s.init, s.scale))
+
+
+def group_param_specs(cfg: ModelConfig, pattern: tuple,
+                      repeat: int) -> dict:
+    per_layer = {f"b{i}": block_param_specs(cfg, blk)
+                 for i, blk in enumerate(pattern)}
+    return _stack_specs(per_layer, repeat)
+
+
+def model_param_specs(cfg: ModelConfig) -> dict:
+    if cfg.enc_groups:
+        raise NotImplementedError(f"the encoder stack is {_QUEUE}")
+    d = cfg.d_model
+    sp: dict = {
+        "embed": ParamSpec((cfg.vocab_size, d), ("vocab", "embed"),
+                           "normal", 1.0),
+        "groups": [group_param_specs(cfg, pat, rep)
+                   for pat, rep in cfg.groups],
+    }
+    sp.update(_norm_specs(cfg, "final"))
+    if not cfg.tie_embeddings:
+        sp["lm_head"] = ParamSpec((d, cfg.vocab_size), ("embed", "vocab"))
+    if cfg.frontend == "patch":
+        sp["patch_pos"] = ParamSpec((cfg.frontend_len, d),
+                                    ("seq", "embed"), "normal", 0.02)
+    return sp
+
+
+# ======================================================================
+# the model state as modules
+# ======================================================================
+class ParamTree(nn.Module):
+    """A nested dict of tensors as a module: ``tree[name]`` is a
+    parameter or a sub-tree.  Parameters carry no gradient: this is the
+    serving path (training comes with ``lm_loss``, Queue 1)."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for name, v in tree.items():
+            if isinstance(v, dict):
+                self.add_module(name, ParamTree(v))
+            else:
+                self.register_parameter(
+                    name, nn.Parameter(v, requires_grad=False))
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+    def get(self, name: str, default=None):
+        return getattr(self, name, default)
+
+    def tree(self) -> dict:
+        """The nested dict of tensors this module holds."""
+        out = {n: p for n, p in self._parameters.items()}
+        out.update({n: m.tree() for n, m in self._modules.items()})
+        return out
+
+
+def _unstack(tree, i: int):
+    if isinstance(tree, dict):
+        return {k: _unstack(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _stack(trees: list):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+class Transformer(ParamTree):
+    """A dense GQA decoder's params: the reference's tree with each
+    group's ``layers`` axis unstacked into an ``nn.ModuleList`` of one
+    :class:`ParamTree` a layer (``{"b0": ..., "b1": ...}``, one entry a
+    block of the group's pattern).  ``model(batch)`` is :func:`forward`."""
+
+    def __init__(self, cfg: ModelConfig, tree: dict):
+        for pat, _ in cfg.groups:
+            for blk in pat:
+                _check_supported(blk)
+        top = {k: v for k, v in tree.items() if k != "groups"}
+        super().__init__(top)
+        self.cfg = cfg
+        self.groups = nn.ModuleList(
+            nn.ModuleList(ParamTree(_unstack(g, i)) for i in range(rep))
+            for g, (_, rep) in zip(tree["groups"], cfg.groups))
+
+    def tree(self) -> dict:
+        """The reference's layout: each group's layers stacked again."""
+        out = {n: p for n, p in self._parameters.items()}
+        out["groups"] = [_stack([layer.tree() for layer in g])
+                         for g in self.groups]
+        return out
+
+    def forward(self, batch: dict, caches=None, positions=None):
+        return forward(self, self.cfg, batch, caches=caches,
+                       positions=positions)
+
+
+# ======================================================================
+# caches
+# ======================================================================
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype: torch.dtype, device):
+    """Caches mirroring the layer structure: a list per group of one
+    ``{"b<i>": {"kv": KVCache}}`` a layer."""
+    out = []
+    for pat, rep in cfg.groups:
+        for blk in pat:
+            _check_supported(blk)
+        out.append([{f"b{i}": {"kv": attn_mod.gqa_init_cache(
+            cfg, blk, batch, max_len, dtype, device)}
+            for i, blk in enumerate(pat)} for _ in range(rep)])
+    return out
+
+
+# ======================================================================
+# forward
+# ======================================================================
+def apply_block(blk: BlockDef, bp, cfg: ModelConfig, x: torch.Tensor,
+                positions, bcache):
+    _check_supported(blk)
+    new_cache = dict(bcache) if bcache is not None else None
+    h = _apply_norm(cfg, bp, "ln1", x)
+    o, kv = attn_mod.gqa_apply(
+        bp["attn"], cfg, blk, h, positions,
+        cache=bcache["kv"] if bcache is not None else None)
+    if new_cache is not None and kv is not None:
+        new_cache["kv"] = kv
+    x = x + o
+    h2 = _apply_norm(cfg, bp, "ln2", x)
+    x = x + mlp_apply(bp["mlp"], cfg, h2)
+    return x, new_cache
+
+
+def run_groups(groups_cfg, gparams_list, x, caches, *, cfg, positions):
+    """Every layer of every group in order (a Python loop: no scan, no
+    remat).  ``gparams_list[g][layer]`` and ``caches[g][layer]`` hold
+    one layer's ``{"b<i>": ...}``."""
+    new_caches = []
+    for gi, (pat, rep) in enumerate(groups_cfg):
+        gc = caches[gi] if caches is not None else None
+        out = []
+        for li in range(rep):
+            lp = gparams_list[gi][li]
+            lc = gc[li] if gc is not None else None
+            lc_new = {}
+            for i, blk in enumerate(pat):
+                bc = lc[f"b{i}"] if lc is not None else None
+                x, lc_new[f"b{i}"] = apply_block(
+                    blk, lp[f"b{i}"], cfg, x, positions, bc)
+            out.append(lc_new)
+        new_caches.append(out if gc is not None else None)
+    return x, (new_caches if caches is not None else None)
+
+
+def embed_inputs(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    """Token + frontend-stub embedding -> (B, T, D)."""
+    x = params["embed"][batch["tokens"].long()].to(cfg.dtype)
+    if cfg.frontend == "patch" and "patches" in batch:
+        pe = (batch["patches"].to(cfg.dtype)
+              + params["patch_pos"][None].to(cfg.dtype))
+        x = torch.cat([pe, x], dim=1)
+    return x
+
+
+def _cast_params(params, dtype: torch.dtype):
+    """Mixed precision: master params may be fp32; compute in cfg.dtype.
+    Returns the nested dict (group layers as lists) of cast tensors; a
+    tensor already in ``dtype`` is passed through, not copied."""
+    if isinstance(params, Transformer):
+        tree = {n: p for n, p in params._parameters.items()}
+        tree["groups"] = [[layer.tree() for layer in g]
+                          for g in params.groups]
+        params = tree
+
+    def cast(t):
+        if isinstance(t, dict):
+            return {k: cast(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [cast(v) for v in t]
+        return t.to(dtype) if t.is_floating_point() else t
+
+    return cast(params)
+
+
+def forward(params, cfg: ModelConfig, batch: dict, *, caches=None,
+            positions=None):
+    """Returns (hidden (B,T,D), new_caches)."""
+    return _forward(_cast_params(params, cfg.dtype), cfg, batch, caches,
+                    positions)
+
+
+def _forward(params: dict, cfg: ModelConfig, batch: dict, caches,
+             positions):
+    """:func:`forward` on params already cast to ``cfg.dtype``."""
+    x = embed_inputs(params, cfg, batch)
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)
+    x, new_caches = run_groups(cfg.groups, params["groups"], x, caches,
+                               cfg=cfg, positions=positions)
+    x = _apply_norm(cfg, params, "final", x)
+    return x, new_caches
+
+
+def logits_fn(params, cfg: ModelConfig, hidden: torch.Tensor):
+    """(B,T,D) -> (B,T,V) logits, in the hidden's dtype."""
+    return _logits(_cast_params(params, cfg.dtype), cfg, hidden)
+
+
+def _logits(params: dict, cfg: ModelConfig, hidden: torch.Tensor):
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return torch.matmul(hidden, w.to(hidden.dtype))
+
+
+def prefill(params, cfg: ModelConfig, batch: dict, cache):
+    """Fill caches with the prompt.  Returns (last_logits (B,1,V),
+    caches, last_hidden (B,D)): the last position's final hidden state
+    comes back too, from the same pass (the kNN-LM head's query; the
+    reference computes it with a second forward)."""
+    tlen = batch["tokens"].shape[1] + (
+        cfg.frontend_len if cfg.frontend == "patch" and "patches" in batch
+        else 0)
+    params = _cast_params(params, cfg.dtype)
+    hidden, caches = _forward(
+        params, cfg, batch, cache,
+        torch.arange(tlen, device=batch["tokens"].device))
+    last = hidden[:, -1:]
+    return _logits(params, cfg, last), caches, last[:, 0]
+
+
+def decode_step(params, cfg: ModelConfig, token: torch.Tensor, cache, *,
+                pos: int):
+    """One decode step: token (B, 1) at absolute position ``pos``."""
+    params = _cast_params(params, cfg.dtype)
+    hidden, caches = _forward(params, cfg, {"tokens": token}, cache,
+                              pos + torch.arange(1, device=token.device))
+    return _logits(params, cfg, hidden), caches

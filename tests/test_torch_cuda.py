@@ -684,3 +684,90 @@ def test_stream_flush_after_warmup_builds_no_kernel(cold, monkeypatch):
         assert set(_build._FNS) == loaded
         ranked = "gather_rank_staged" if cold else "gather_rank"
         assert ops.LAUNCHES["lsh_hash"] > 0 and ops.LAUNCHES[ranked] > 0
+
+
+# ======================================================================
+# the LM serving path
+# ======================================================================
+def _lm(arch, reduced, dtype=None, device=None, seed=0):
+    from repro_torch import configs
+    from repro_torch.models import build_model
+    cfg = configs.get_config(arch, reduced=reduced)
+    if dtype is not None:
+        import dataclasses
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    model = build_model(cfg)
+    gen = torch.Generator(device=device or "cuda").manual_seed(seed)
+    return model, model.init(gen, device=device)
+
+
+@pytest.mark.cuda
+def test_full_width_decode_matches_forward_on_card():
+    """smollm_135m at full width in bf16: prefill, then one decode step,
+    equals a full forward's last-position logits within the reference's
+    own 3e-2 (tests/test_arch_smoke.py)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    model, params = _lm("smollm_135m", reduced=False)
+    assert params.embed.is_cuda and params.embed.dtype == torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(1)
+    toks = torch.randint(0, model.cfg.vocab_size, (2, 17), generator=g,
+                         device="cuda", dtype=torch.int32)
+    cache = model.init_cache(2, 24)
+    _, cache, _ = model.prefill(params, {"tokens": toks[:, :16]}, cache)
+    dec, _ = model.decode_step(params, toks[:, 16:], cache, 16)
+    hidden, _ = model.forward(params, {"tokens": toks})
+    full = model.logits(params, hidden[:, -1:])
+    torch.testing.assert_close(dec.float(), full.float(), rtol=3e-2,
+                               atol=3e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["smollm_135m", "qwen2_7b"])
+def test_reduced_model_cpu_equals_card(arch):
+    """The same f32 weights and tokens on the CPU and on the card (no
+    TF32): forward, prefill and decode logits within 1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    assert not torch.backends.cuda.matmul.allow_tf32
+    model, cpu = _lm(arch, reduced=True, dtype=torch.float32, device="cpu")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = cpu if dev == "cpu" else cpu.to("cuda")
+        toks = torch.arange(24, dtype=torch.int32).reshape(2, 12) * 7 % 512
+        toks = toks.to(dev)
+        hidden, _ = model.forward(params, {"tokens": toks})
+        cache = model.init_cache(2, 16, device=dev)
+        logits, cache, _ = model.prefill(params, {"tokens": toks}, cache)
+        dec, _ = model.decode_step(params, toks[:, :1], cache, 12)
+        out[dev] = [t.cpu() for t in (hidden, logits, dec)]
+    for a, b in zip(out["cpu"], out["cuda"]):
+        torch.testing.assert_close(b, a, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_lm_and_datastore_default_to_the_card():
+    """A model, its cache and a datastore built with no device land on
+    CUDA, and one full-width generate with the kNN head runs there,
+    launching the datastore's kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core import PFOConfig, PFOIndex
+    from repro_torch.serving import ServeConfig, ServingEngine
+    model, params = _lm("smollm_135m", reduced=False)
+    assert model.init_cache(1, 4)[0][0]["b0"]["kv"].k.is_cuda
+    idx = PFOIndex(PFOConfig(dim=model.cfg.d_model, L=4, C=2, m=2, l=32, t=4,
+                             max_candidates_total=128))
+    assert idx.state.store.data.is_cuda
+    g = torch.Generator(device="cuda").manual_seed(2)
+    mem = torch.randn((256, model.cfg.d_model), generator=g, device="cuda")
+    idx.insert(np.arange(256, dtype=np.int32), mem)
+    eng = ServingEngine(model, params, ServeConfig(knn_lambda=0.3),
+                        pfo_index=idx,
+                        knn_vocab_map=np.arange(1024, dtype=np.int32))
+    ops.reset_launches()
+    toks = np.arange(32, dtype=np.int32).reshape(4, 8)
+    out, stats = eng.generate({"tokens": toks}, max_new=4)
+    assert out.shape == (4, 4) and stats["datastore_size"] == 260
+    assert ((0 <= out) & (out < model.cfg.vocab_size)).all()
+    assert ops.LAUNCHES["lsh_hash"] > 0 and ops.LAUNCHES["gather_rank"] > 0

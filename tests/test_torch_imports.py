@@ -40,7 +40,9 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.core.coldtier, repro_torch.core.baselines, "
             "repro_torch.serving, repro_torch.obs.slo, "
             "repro_torch.checkpoint, repro_torch.sharding, "
-            "repro_torch.core.distributed\n"
+            "repro_torch.core.distributed, repro_torch.models, "
+            "repro_torch.configs, repro_torch.data, "
+            "repro_torch.serving.engine, repro_torch.launch.serve\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(','.join(bad))")
