@@ -29,7 +29,7 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    kernel), whose ids are also held against the plain version's;
 6. the stream engine on that index (``stream``): the streaming
    benchmark's 50/25/12.5/12.5 query/insert/delete/update mix in windows
-   of 256 requests, 32,768 measured after a warm prefix, the counts set
+   of 256 requests, 16,384 measured after a warm prefix, the counts set
    to 0 just before and read just after, every answer held to a
    window-mode oracle on the card; requests/s against the same stream as
    per-request ``PFOIndex`` calls, flush and request latencies, one flag
@@ -53,7 +53,7 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    datastore leaves); then smollm_135m at full width in bf16 (random
    weights from a seeded ``torch.Generator``) behind ``ServingEngine``
    with the PFO kNN-LM head on a ``StreamEngine``, over a datastore
-   filled with 32,768 memories (the model's hidden states over
+   filled with 16,384 memories (the model's hidden states over
    ``SyntheticLM`` text -> the next token), the counts set to 0 just
    before the fill and read after the recall oracle: three rounds of
    four requests, decode == forward, the greedy tokens with the head
@@ -65,18 +65,40 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    query, ``gather_rank`` on that query, ``pair_dist`` on the recall
    oracle), each held against its plain version and timed, with its
    bound (the kernel rows' ``lm`` entries and ``lm_oracle``);
-10. the paper's comparators on the hot path's own items and queries
+10. training (``train``), which launches none of the six kernels:
+   (a) reduced smollm_135m and llama4_scout_17b_a16e in f32, the same
+   init and ``SyntheticLM`` batches, five ``make_train_step`` steps on
+   the CPU and on the card: losses and grad norms at every step and the
+   final params within 1e-4, the MoE routing (expert ids, kept pairs)
+   equal; (b) smollm_135m at its published widths through ``Trainer``
+   (f32 params and master, bf16 compute, batch 8 x 1,024 tokens cycling
+   4 ``SyntheticLM`` batches, loss chunks of 512, remat, AdamW lr 6e-4
+   with 5 warmup steps): 20 steps
+   uninterrupted, then 10 steps, a checkpoint, and a resumed run to 20;
+   the loss falls, the restored state equals the saved one bit for bit
+   and the resumed losses lie within 1e-3 of the uninterrupted ones; step
+   ms (CUDA events), tokens/s, checkpoint seconds and bytes, peak
+   memory, launches and implicit syncs a step, a profiled step's idle
+   share; (c) llama4_scout_17b_a16e at its published widths with its
+   depth cut to one repeat of its 4-block pattern (4 of 48 layers, ~22
+   GB of bf16 weights from a generator on the card): prefill of 4 x 64
+   tokens and 16 decode steps, decode == forward within 3e-2 (relative
+   in norm) at every position whose row was routed alike up to it, and
+   every routing difference at a near tie of the router's bf16 logits;
+   no pair dropped at decode, tokens per expert, and the pairs one 4 x
+   256-token prefill drops by capacity;
+11. the paper's comparators on the hot path's own items and queries
    (``baselines``): ``ZOrderIndex`` and ``MultiProbeFlat`` inserted and
    queried beside PFO's answer, each with recall@10 and Eq. 1's error
    ratio against ``BruteForce``; ``SerializedPFO`` against a dispatched
    ``PFOIndex`` on 500 vectors, its forest equal on the CPU and on the
    card; counts set to 0 just before each comparator and read just
    after;
-11. the cold path at glove-100 width: 800,000 inserts with churn into
+12. the cold path at glove-100 width: 800,000 inserts with churn into
    an index whose store holds a third of them, spilling to file-backed
    segments; queries of cold-only items and deletes of them, counts set
    to 0 just before and read just after;
-12. each kernel against its plain version on the card, at the shapes its
+13. each kernel against its plain version on the card, at the shapes its
    path gave it, with its time, the plain version's time, one PyTorch
    library call's time and the least time the card could take (the
    bound): the larger of the bytes the call must move over the memory
@@ -91,7 +113,7 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    step), ``hamming`` through its wrapper, range check included, and
    ``lsh_hash`` and ``gather_rank`` also at the stream's 256-row bucket
    (``stream_bucket``, with their launches by path);
-13. the kernels line, the card's name and power limit, then the last
+14. the kernels line, the card's name and power limit, then the last
     line: ``{"ok": true, "device": {...}}``.
 
 Everything worth keeping is printed as one JSON object per line.
@@ -137,12 +159,18 @@ from repro_torch.kernels.lsh_hash import lsh_hash_cuda  # noqa: E402
 from repro_torch.kernels.pair_dist import pair_dist_cuda  # noqa: E402
 from repro_torch.kernels.rank_candidates import rank_dots_cuda  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models.transformer import param_dict  # noqa: E402
+from repro_torch.optim import AdamWConfig, adamw_init  # noqa: E402
+from repro_torch.optim.adamw import tree_leaves  # noqa: E402
 from repro_torch.obs import Obs  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
     DistStreamEngine, ServeConfig, ServingEngine, StreamConfig, StreamEngine,
     drive)
 from repro_torch.serving import engine as engine_mod  # noqa: E402
 from repro_torch.sharding import stream_mesh  # noqa: E402
+from repro_torch.train import TrainConfig, Trainer, make_train_step  # noqa
+from repro_torch.train import loop as train_loop  # noqa: E402
 
 # published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bytes/s, fp32
 # FLOP/s outside the tensor cores and dense TF32 FLOP/s on them.  A bound
@@ -336,7 +364,7 @@ def device_profile(fn) -> dict:
     top = sorted(per.items(), key=lambda kv: -kv[1][1])[:5]
     return dict(wall_ms=wall, device_busy_ms=busy if per else None,
                 idle_share=1 - busy / wall if per else None,
-                lead_in_lost=lost,
+                launches=len(events), lead_in_lost=lost,
                 kernels=[dict(name=name[:60], count=n, ms=ms)
                          for name, (n, ms) in top])
 
@@ -950,7 +978,7 @@ def phase_main(args):
 # phase 6: the stream engine at glove-100 width, on the hot path's index
 # ----------------------------------------------------------------------
 STREAM_WARM = 1024          # requests before the measured leg
-STREAM_REQUESTS = 32768     # the measured leg
+STREAM_REQUESTS = 16384     # the measured leg (cut for time from 32,768)
 STREAM_PER_REQUEST = 256    # the same stream, one PFOIndex call a request
 #                             (cut for time)
 STREAM_FLUSH = 256          # requests a window (flush_every)
@@ -1665,9 +1693,10 @@ LM_EXAMPLE = dict(L=4, C=2, m=2, l=32, t=4, max_candidates_total=128,
 #: whole table's memories (hidden states crowd into few buckets)
 LM_DATASTORE = dict(LM_EXAMPLE, max_nodes_per_tree=8192,
                     max_leaves_per_tree=40960, store_capacity=1 << 16)
-LM_FILL_SEQS = 32        # SyntheticLM sequences in the datastore, of ...
-LM_FILL_LEN = 1024       # ... 1,024 tokens: 32,768 memories (a real kNN-LM
-#                          datastore holds ~10^8; cut for chip time)
+LM_FILL_SEQS = 16        # SyntheticLM sequences in the datastore, of ...
+LM_FILL_LEN = 1024       # ... 1,024 tokens: 16,384 memories (a real kNN-LM
+#                          datastore holds ~10^8; cut for chip time from
+#                          32,768)
 LM_FILL_BATCH = 8        # sequences a forward pass
 LM_INSERT = 4096         # rows an insert call
 LM_ROUNDS, LM_REQUESTS, LM_PROMPT, LM_NEW = 3, 4, 16, 16
@@ -2099,7 +2128,439 @@ def phase_lm(args, card: str, rows: list) -> tuple:
 
 
 # ----------------------------------------------------------------------
-# phase 10: the paper's comparators on the hot path's items and queries
+# phase 10: training (the dense decoder at full width, MoE at full width)
+# ----------------------------------------------------------------------
+TRAIN_PARITY_ARCHS = ("smollm_135m", "llama4_scout_17b_a16e")  # reduced
+TRAIN_PARITY_STEPS = 5
+#: lr of the reference's resume test: Adam moves an element by ~lr
+#: whatever its gradient's size, so at 1e-2 an embedding row whose
+#: gradient nearly cancels moves by the sign of rounding noise
+TRAIN_PARITY_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=10)
+TRAIN_TOL = 1e-4         # f32 losses, grad norms and params, CPU vs card
+TRAIN_ARCH = "smollm_135m"
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_CHUNK = 1024, 8, 512
+TRAIN_STEPS, TRAIN_CUT = 20, 10
+#: the full-width run cycles this many SyntheticLM batches: its next
+#: token is a fixed bijection of the current one over all 49,152 ids, so
+#: fresh batches teach nothing in 20 steps (the loss stays at ln 49,152,
+#: 10.806-10.818, over 40 steps on an H100) while the model fits a few
+#: batches it sees again (one batch repeated: 10.81 -> 8.79 in 12 steps)
+TRAIN_DATA_BATCHES = 4
+#: examples/train_smollm.py's optimizer (lr 6e-4, warmup max(steps // 20, 5))
+TRAIN_OPT = dict(lr=6e-4, warmup_steps=5, total_steps=TRAIN_STEPS)
+RESUME_TOL = 1e-3        # resumed vs uninterrupted losses (atomics on card)
+MOE_ARCH = "llama4_scout_17b_a16e"
+MOE_REPEATS = 1          # of its 12 repeats of 4 blocks: 4 of 48 layers
+MOE_BATCH, MOE_PROMPT, MOE_NEW = 4, 64, 16
+MOE_DROP_LEN = 256       # one 4 x 256-token prefill: capacity-bound
+#: a decode token's router logits are bf16 products whose inputs lie a
+#: few bf16 ulps from the forward's (other GEMM shapes round elsewhere),
+#: so where the forward's top two logits lie within this many ulps of
+#: the top one the two paths may pick different experts (0-4 ulps were
+#: seen on an H100)
+NEAR_TIE_ULPS = 4
+
+
+def route_tap(seen: list):
+    """A ``tapped`` keeper for ``moe.moe_apply``: each call's routing
+    (expert ids and kept pairs, on the host)."""
+    def keep(p, cfg, x):
+        with torch.no_grad():
+            r = moe_mod.routing(p, cfg, x)
+        seen.append(dict(expert=r["expert"].cpu(), keep=r["keep"].cpu(),
+                         cap=r["cap"], experts=cfg.n_experts))
+    return keep
+
+
+def gap_tap(seen: list):
+    """A ``tapped`` keeper for ``moe.moe_apply``: each call's top expert
+    a token, and how far its router logit lies above the runner-up's, in
+    bf16 ulps at the top logit's magnitude."""
+    def keep(p, cfg, x):
+        with torch.no_grad():
+            logits = moe_mod.dense(x.reshape(-1, x.shape[-1]),
+                                   p["router"]).float()
+            top = torch.sort(logits, dim=-1, descending=True, stable=True)
+            _, exp = torch.frexp(top.values[:, 0])
+            ulp = torch.ldexp(torch.ones_like(top.values[:, 0]), exp - 8)
+            seen.append(dict(
+                expert=top.indices[:, 0].reshape(x.shape[:2]).cpu(),
+                gap_ulps=((top.values[:, 0] - top.values[:, 1]) / ulp)
+                .reshape(x.shape[:2]).cpu()))
+    return keep
+
+
+def routing_flips(path: list, fwd: list, n_layers: int) -> dict:
+    """Where the prefill + decode path routed a token to another expert
+    than the forward did.  ``path``: the prefill's calls (one a layer),
+    then each decode step's; ``fwd``: the forward's (one a layer).
+    Returns the flips (row, position, layer, the forward's gap in ulps)
+    and each row's first flipped position (the row's later logits read
+    that token's changed keys and values)."""
+    flips, first = [], {}
+    for li in range(n_layers):
+        steps = [path[li]["expert"]] + [
+            path[n_layers * (1 + i) + li]["expert"]
+            for i in range((len(path) - n_layers) // n_layers)]
+        got = torch.cat(steps, dim=1)
+        want = fwd[li]["expert"][:, :got.shape[1]]
+        for b, t in (got != want).nonzero().tolist():
+            flips.append((b, t, li, float(fwd[li]["gap_ulps"][b, t])))
+            first[b] = min(first.get(b, t), t)
+    return dict(flips=flips, first=first)
+
+
+def train_parity(seed: int) -> dict:
+    """TRAIN_PARITY_STEPS ``make_train_step`` steps of each reduced arch
+    in f32 on the CPU and on the card (TF32 off), from the same init and
+    batches: losses, grad norms and final params within TRAIN_TOL, the
+    MoE routing of every call equal."""
+    out = {}
+    for arch in TRAIN_PARITY_ARCHS:
+        cfg = dataclasses.replace(configs.get_config(arch, reduced=True),
+                                  dtype=torch.float32)
+        model = build_model(cfg)
+        opt_cfg = AdamWConfig(**TRAIN_PARITY_OPT)
+        data = SyntheticLM(cfg.vocab_size, 32, 4, seed=seed)
+        cpu = model.init(torch.Generator().manual_seed(seed), torch.float32,
+                         device="cpu")
+        # the card's copy first: a step updates its params in place
+        start = {"cpu": cpu, DEVICE: convert.params_from_numpy(
+            cfg, convert.params_to_numpy(cpu), device=DEVICE)}
+        runs = {}
+        for dev, params in start.items():
+            step = make_train_step(model, None, opt_cfg, 16)
+            opt = adamw_init(opt_cfg, param_dict(params))
+            metrics, routes = [], []
+            with tapped(moe_mod, "moe_apply", route_tap(routes)):
+                for i in range(TRAIN_PARITY_STEPS):
+                    batch = {k: torch.from_numpy(v).to(dev)
+                             for k, v in data.batch(i).items()}
+                    params, opt, m = step(params, opt, batch)
+                    metrics.append((float(m["loss"]),
+                                    float(m["grad_norm"])))
+            runs[dev] = (metrics, routes,
+                         [t.cpu() for t in tree_leaves(param_dict(params))])
+        (m0, r0, p0), (m1, r1, p1) = runs["cpu"], runs[DEVICE]
+        err = max(abs(a - b) / abs(a) for x, y in zip(m0, m1)
+                  for a, b in zip(x, y))
+        check(err <= TRAIN_TOL, f"{arch}: train metrics CPU vs card {err}")
+        perr = max(float((b - a).norm() / a.norm()) for a, b in zip(p0, p1))
+        check(perr <= TRAIN_TOL, f"{arch}: params CPU vs card {perr}")
+        check(len(r0) == len(r1), f"{arch}: MoE calls differ")
+        for a, b in zip(r0, r1):
+            check(torch.equal(a["expert"], b["expert"])
+                  and torch.equal(a["keep"], b["keep"]),
+                  f"{arch}: MoE routing differs CPU vs card")
+        out[arch] = dict(losses=[x for x, _ in m1], metric_max_rel_err=err,
+                         param_max_rel_err=perr, moe_calls=len(r1))
+    return out
+
+
+@dataclasses.dataclass
+class Cycled:
+    """A data stream that replays the first ``n`` batches of another,
+    still a pure function of the step (a restart replays it)."""
+    data: SyntheticLM
+    n: int
+
+    def batch(self, step: int) -> dict:
+        return self.data.batch(step % self.n)
+
+
+def train_state_equal(a_params, a_opt, b_params, b_opt) -> int:
+    """Every leaf of two train states equal bit for bit; the count."""
+    return leaves_equal(train_loop.state_tree(a_params, a_opt),
+                        train_loop.state_tree(b_params, b_opt))
+
+
+def train_full_width(args, tmp: str) -> dict:
+    """smollm_135m at its published widths through ``Trainer`` on the
+    card: TRAIN_STEPS steps uninterrupted, then a run cut at TRAIN_CUT
+    and one resumed from its checkpoint."""
+    cfg = configs.get_config(TRAIN_ARCH)
+    model = build_model(cfg)
+    data = Cycled(SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                              seed=args.seed), TRAIN_DATA_BATCHES)
+
+    def trainer(steps, ckpt_every, sub):
+        t = Trainer(model, data, TrainConfig(
+            steps=steps, ckpt_every=ckpt_every, log_every=10 ** 9,
+            ckpt_dir=os.path.join(tmp, sub), loss_chunk=TRAIN_CHUNK,
+            seed=args.seed, opt=AdamWConfig(**TRAIN_OPT)))
+        check(t.device.type == "cuda", "the trainer left the card")
+        return t
+
+    times, gnorms, saves, loads = [], [], [], []
+
+    def timed_steps(t):
+        real = t.step_fn
+
+        def step(params, opt, batch):
+            e0, e1 = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+            e0.record()
+            out = real(params, opt, batch)
+            e1.record()
+            times.append((e0, e1))
+            gnorms.append(out[2]["grad_norm"])
+            return out
+        t.step_fn = step
+        return real
+
+    real_save = train_loop.save_train_checkpoint
+
+    def save(ckpt_dir, step, params, opt, extra=None):
+        t0 = time.perf_counter()
+        path = real_save(ckpt_dir, step, params, opt, extra)
+        saves.append(dict(step=step, s=time.perf_counter() - t0,
+                          bytes=dir_bytes(path)))
+        return path
+
+    torch.cuda.reset_peak_memory_stats()
+    train_loop.save_train_checkpoint = save
+    try:
+        full = trainer(TRAIN_STEPS, TRAIN_STEPS, "full")
+        real_step = timed_steps(full)
+        t0 = time.perf_counter()
+        ref = full.run(resume=False)
+        full_s = time.perf_counter() - t0
+        step_ms = [e0.elapsed_time(e1) for e0, e1 in times]
+        gn = [float(g) for g in gnorms]
+        peak = torch.cuda.max_memory_allocated()
+
+        cut = trainer(TRAIN_CUT, TRAIN_CUT, "cut")
+        part = cut.run(resume=False)
+        real_restore = train_loop.restore_train_checkpoint
+
+        def restore(ckpt_dir, step, params, opt):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = real_restore(ckpt_dir, step, params, opt)
+            torch.cuda.synchronize()
+            loads.append(dict(step=step, s=time.perf_counter() - t0,
+                              leaves_equal=train_state_equal(
+                                  got[0], got[1], part["params"],
+                                  part["opt"])))
+            return got
+
+        train_loop.restore_train_checkpoint = restore
+        try:
+            resumed = trainer(TRAIN_STEPS, TRAIN_CUT, "cut").run(resume=True)
+        finally:
+            train_loop.restore_train_checkpoint = real_restore
+    finally:
+        train_loop.save_train_checkpoint = real_save
+    check(len(loads) == 1 and loads[0]["step"] == TRAIN_CUT,
+          f"the resumed run did not restore step {TRAIN_CUT}: {loads}")
+    losses = ref["losses"]
+    check(all(np.isfinite(losses)), f"a loss is not finite: {losses}")
+    check(np.mean(losses[-3:]) < np.mean(losses[:3]),
+          f"the loss did not fall: {losses}")
+    check(np.allclose(part["losses"], losses[:TRAIN_CUT], rtol=RESUME_TOL,
+                      atol=0),
+          "the cut run's losses differ from the uninterrupted run's")
+    resume_err = max(abs(a - b) / abs(b) for a, b in
+                     zip(resumed["losses"], losses[TRAIN_CUT:]))
+    check(len(resumed["losses"]) == TRAIN_STEPS - TRAIN_CUT
+          and resume_err <= RESUME_TOL,
+          f"resumed losses differ by {resume_err} (> {RESUME_TOL})")
+
+    # one more step of the uninterrupted run's state: the syncs no one
+    # counted, then one traced
+    params, opt = ref["params"], ref["opt"]
+    batches = [{k: torch.from_numpy(v).to(DEVICE) for k, v in
+                data.batch(TRAIN_STEPS + i).items()} for i in range(2)]
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            params, opt, _ = real_step(params, opt, batches[0])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    syncs = sum(SYNC_WARNING in str(w.message) for w in caught)
+    traced = device_profile(lambda: real_step(params, opt, batches[1]))
+    n_params = sum(p.numel() for p in ref["params"].parameters())
+    steady = sorted(step_ms[1:])
+    return dict(
+        arch=TRAIN_ARCH, params=n_params, layers=cfg.n_layers,
+        d_model=cfg.d_model, vocab=cfg.vocab_size, seq=TRAIN_SEQ,
+        batch=TRAIN_BATCH, loss_chunk=TRAIN_CHUNK, opt=TRAIN_OPT,
+        param_dtype="float32", compute_dtype="bfloat16", master=True,
+        remat=True, steps=TRAIN_STEPS, losses=losses, grad_norms=gn,
+        first_step_ms=step_ms[0],
+        step_ms=dict(p50=float(np.percentile(steady, 50)),
+                     p99=float(np.percentile(steady, 99)),
+                     mean=float(np.mean(steady)), n=len(steady)),
+        tokens_per_s=TRAIN_SEQ * TRAIN_BATCH
+        / (float(np.percentile(steady, 50)) / 1e3),
+        run_s=full_s, resumed_losses=resumed["losses"],
+        resume_max_rel_err=resume_err, checkpoint_saves=saves,
+        checkpoint_load=loads[0], peak_mem_bytes=peak,
+        implicit_syncs_per_step=syncs, traced_step=traced,
+        launches_per_step=traced["launches"])
+
+
+def moe_full_width(args) -> dict:
+    """llama4_scout_17b_a16e at its published widths, one repeat of its
+    4-block pattern, bf16 weights drawn on the card: prefill, decode
+    steps held to a forward over the same tokens, the routing of every
+    MoE call; then one capacity-bound prefill's dropped pairs."""
+    full = configs.get_config(MOE_ARCH)
+    cfg = dataclasses.replace(full, n_layers=4 * MOE_REPEATS,
+                              groups=((full.groups[0][0], MOE_REPEATS),))
+    model = build_model(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(
+        args.seed), device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    check(params.embed.dtype == torch.bfloat16 and params.embed.is_cuda,
+          "the MoE model is not bf16 on the card")
+    g = torch.Generator(device=DEVICE).manual_seed(args.seed + 7)
+    total = MOE_PROMPT + MOE_NEW
+    toks = torch.randint(0, cfg.vocab_size, (MOE_BATCH, total), generator=g,
+                         device=DEVICE, dtype=torch.int32)
+
+    def ev():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    pre_routes, dec_routes, drop_routes = [], [], []
+    path_gaps, fwd_gaps = [], []
+    with torch.no_grad():
+        cache = model.init_cache(MOE_BATCH, total, device=DEVICE)
+        with tapped(moe_mod, "moe_apply", route_tap(pre_routes)), \
+                tapped(moe_mod, "moe_apply", gap_tap(path_gaps)):
+            e0 = ev()
+            first, cache, _ = model.prefill(
+                params, {"tokens": toks[:, :MOE_PROMPT]}, cache)
+            e1 = ev()
+        logits, step_ev = [first], []
+        with tapped(moe_mod, "moe_apply", route_tap(dec_routes)), \
+                tapped(moe_mod, "moe_apply", gap_tap(path_gaps)):
+            for i in range(MOE_NEW):
+                pos = MOE_PROMPT + i
+                a = ev()
+                out, cache = model.decode_step(
+                    params, toks[:, pos:pos + 1], cache, pos)
+                step_ev.append((a, ev()))
+                logits.append(out)
+        torch.cuda.synchronize()
+        prefill_ms = e0.elapsed_time(e1)
+        dec_ms = sorted(a.elapsed_time(b) for a, b in step_ev)
+        del cache
+        with tapped(moe_mod, "moe_apply", gap_tap(fwd_gaps)):
+            hidden, _ = model.forward(params, {"tokens": toks})
+        want = model.logits(params, hidden[:, MOE_PROMPT - 1:]).float()
+        got = torch.cat(logits, dim=1).float()
+        # per (row, position): max abs and relative error in norm
+        abs_err = (got - want).abs().amax(-1).cpu()
+        rel_err = ((got - want).norm(dim=-1) / want.norm(dim=-1)).cpu()
+        del hidden, want, got, logits, first, out
+        long = torch.randint(0, cfg.vocab_size, (MOE_BATCH, MOE_DROP_LEN),
+                             generator=g, device=DEVICE, dtype=torch.int32)
+        with tapped(moe_mod, "moe_apply", route_tap(drop_routes)):
+            model.forward(params, {"tokens": long})
+        torch.cuda.synchronize()
+    n_moe = 4 * MOE_REPEATS
+    check(len(pre_routes) == n_moe and len(dec_routes) == n_moe * MOE_NEW
+          and len(drop_routes) == n_moe, "MoE calls missing from the taps")
+    # decode == forward: every position whose row routed alike up to it
+    # within BF16_TOL (relative in norm, the bf16 rule of the models'
+    # parity tests); a token routed to another expert only at a near
+    # tie, or in a layer after its first flip (its state had moved)
+    fl = routing_flips(path_gaps, fwd_gaps, n_moe)
+    for b, t, li, gap in fl["flips"]:
+        earlier = any(b2 == b and t2 == t and l2 < li
+                      for b2, t2, l2, _ in fl["flips"])
+        check(gap <= NEAR_TIE_ULPS or earlier,
+              f"MoE at full width: row {b} position {t} layer {li} routed "
+              f"apart from the forward {gap} ulps from a tie")
+    clean = torch.zeros_like(rel_err, dtype=torch.bool)
+    for b in range(MOE_BATCH):
+        for j in range(MOE_NEW + 1):
+            clean[b, j] = MOE_PROMPT - 1 + j < fl["first"].get(b, total)
+    dec_err = float(rel_err[clean].max())
+    check(bool(clean[:, 0].all()) and dec_err <= BF16_TOL,
+          f"MoE at full width: decode differs from forward by {dec_err} "
+          f"(relative in norm) where the routing agreed")
+    dec_drops = sum(int((~r["keep"]).sum()) for r in dec_routes)
+    check(dec_drops == 0, f"{dec_drops} pairs dropped at decode")
+
+    def per_expert(routes):
+        n = torch.zeros(cfg.n_experts, dtype=torch.int64)
+        for r in routes:
+            n += torch.bincount(r["expert"][r["keep"]],
+                                minlength=cfg.n_experts)
+        return n.tolist()
+
+    peak = torch.cuda.max_memory_allocated()
+    del params
+    torch.cuda.empty_cache()
+    return dict(
+        arch=MOE_ARCH, params=n_params, layers=cfg.layer_count(),
+        published_layers=full.layer_count(), d_model=cfg.d_model,
+        experts=cfg.n_experts, top_k=cfg.top_k,
+        shared_experts=cfg.n_shared_experts, moe_d_ff=cfg.moe_d_ff,
+        vocab=cfg.vocab_size, dtype="bfloat16", init_s=init_s,
+        batch=MOE_BATCH, prompt=MOE_PROMPT, new=MOE_NEW,
+        prefill_ms=prefill_ms,
+        decode_step_ms=dict(p50=float(np.percentile(dec_ms, 50)),
+                            p99=float(np.percentile(dec_ms, 99)),
+                            mean=float(np.mean(dec_ms))),
+        decode_vs_forward=dict(
+            rel_err_max=dec_err, positions_held=int(clean.sum()),
+            positions=int(clean.numel()),
+            max_abs_err_held=float(abs_err[clean].max()),
+            rel_err=rel_err.tolist(), routing_flips=fl["flips"]),
+        decode_dropped_pairs=dec_drops,
+        prefill_capacity=pre_routes[0]["cap"],
+        prefill_tokens_per_expert=per_expert(pre_routes),
+        decode_tokens_per_expert=per_expert(dec_routes),
+        capacity_bound=dict(
+            tokens=MOE_BATCH * MOE_DROP_LEN, capacity=drop_routes[0]["cap"],
+            dropped_pairs=[int((~r["keep"]).sum()) for r in drop_routes],
+            pairs_per_layer=int(drop_routes[0]["keep"].numel())),
+        peak_mem_bytes=peak)
+
+
+def phase_train(args, card: str) -> None:
+    """Training: (a) CPU == card on reduced configs, (b) the dense
+    decoder at full width through ``Trainer`` with a restart, (c) the MoE
+    decoder at full width (depth cut).  No kernel of the six runs here."""
+    t_phase = time.perf_counter()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    parity = train_parity(args.seed)
+    parity_s = time.perf_counter() - t0
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        t0 = time.perf_counter()
+        dense = train_full_width(args, tmp)
+        dense_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    moe = moe_full_width(args)
+    moe_s = time.perf_counter() - t0
+    check(not any(ops.LAUNCHES.values()),
+          f"the train path launched a PFO kernel: {dict(ops.LAUNCHES)}")
+    emit(phase="train", card=card, cpu_vs_card=parity,
+         cpu_vs_card_s=parity_s, dense=dict(dense, s=dense_s),
+         moe=dict(moe, s=moe_s), s=time.perf_counter() - t_phase)
+
+
+# ----------------------------------------------------------------------
+# phase 11: the paper's comparators on the hot path's items and queries
 # ----------------------------------------------------------------------
 def run_comparator(index, ids, vecs, q, batch: int):
     """Insert (ids, vecs) in batches and answer q once, with the launch
@@ -2245,7 +2706,7 @@ def phase_baselines(args, hot):
 
 
 # ----------------------------------------------------------------------
-# phase 11: the cold path at glove-100 width
+# phase 12: the cold path at glove-100 width
 # ----------------------------------------------------------------------
 COLD_TOMBSTONES = 1 << 17
 COLD_BUDGET = 256
@@ -2425,7 +2886,7 @@ def phase_cold_main(args):
 
 
 # ----------------------------------------------------------------------
-# phase 12: each kernel against its plain version, timed, with its bound
+# phase 13: each kernel against its plain version, timed, with its bound
 # ----------------------------------------------------------------------
 def hash_flips(x, a):
     """lsh_hash's bits on the card against its plain version and against
@@ -2765,6 +3226,8 @@ def main() -> int:
     phase_dist(args, rows)
     torch.cuda.empty_cache()
     lm_launches, lm_pair = phase_lm(args, card, rows)
+    torch.cuda.empty_cache()
+    phase_train(args, card)
     torch.cuda.empty_cache()
     hot_pair = pair_dist_at(hot["oracle_in"])
     feeds = phase_baselines(args, hot)

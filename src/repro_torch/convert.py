@@ -11,9 +11,10 @@ compared — the cold tier's ``ColdState`` included (``None`` when off).
 
 :func:`params_from_numpy` and :func:`params_to_numpy` carry a model's
 weights across: the JAX package's param pytree (each group's leaves
-stacked over a leading ``layers`` axis) to the port's
-``Transformer`` (one module a layer) and back, so both packages can run
-on the same weights.
+stacked over a leading ``layers`` axis; MoE blocks' expert leaves
+included) to the port's ``Transformer`` (one module a layer) and back,
+so both packages can run on the same weights.  :func:`opt_from_numpy`
+and :func:`opt_to_numpy` do the same for AdamW's ``OptState``.
 """
 from __future__ import annotations
 
@@ -26,7 +27,8 @@ from .core.hash_tree import TreeState
 from .core.index import PFOState
 from .core.store import DenseStore
 from .models.common import ModelConfig
-from .models.transformer import Transformer
+from .models.transformer import Transformer, stack_layers, unstack_layers
+from .optim.adamw import OptState
 
 #: fields that hold uint32 values (int64 in the port); the port's tree
 #: arenas are int64 too, where the reference's are int32
@@ -141,3 +143,31 @@ def params_to_numpy(model: Transformer) -> dict:
         t = t.detach().cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
     return _map_tree(model.tree(), leaf)
+
+
+def opt_from_numpy(opt, device=None) -> OptState:
+    """The JAX package's ``OptState`` (or :func:`opt_to_numpy`'s dict):
+    m, v and master (None or a tree) in the reference's stacked layout,
+    the step a 0-d int32 -> the port's ``OptState`` on ``device``, each
+    tree in ``param_dict``'s layout (layers unstacked)."""
+    f = _fields(opt)
+
+    def tree(t):
+        if t is None:
+            return None
+        return unstack_layers(_map_tree(t, lambda a: _param_tensor(a,
+                                                                   device)))
+    return OptState(tree(f["m"]), tree(f["v"]), tree(f["master"]),
+                    _param_tensor(f["step"], device))
+
+
+def opt_to_numpy(opt: OptState) -> dict:
+    """:func:`opt_from_numpy`'s inverse: ``{"m", "v", "master", "step"}``
+    in the reference's stacked layout as numpy (master None when off)."""
+    def tree(t):
+        if t is None:
+            return None
+        return _map_tree(stack_layers(t),
+                         lambda x: x.detach().cpu().numpy())
+    return dict(m=tree(opt.m), v=tree(opt.v), master=tree(opt.master),
+                step=opt.step.detach().cpu().numpy())

@@ -1,6 +1,8 @@
-"""Model registry: config -> Model bundle (init / forward / serve fns).
+"""Model registry: config -> Model bundle (init / forward / loss / serve
+fns).
 
-``build_model(cfg)`` wires the assembly for a dense GQA ModelConfig;
+``build_model(cfg)`` wires the assembly for a GQA ModelConfig (dense or
+MoE feed-forward blocks);
 ``get(name)`` resolves an architecture from ``repro_torch.configs``.
 The model state is a :class:`~.transformer.Transformer` on a device;
 CUDA unless the caller names another.
@@ -36,6 +38,11 @@ class Model(NamedTuple):
         return tfm.init_cache(self.cfg, batch, max_len,
                               dtype or self.cfg.dtype,
                               default_device(device))
+
+    def loss(self, params, batch, remat: bool = True,
+             loss_chunk: int = 512):
+        return tfm.lm_loss(params, self.cfg, batch, remat=remat,
+                           loss_chunk=loss_chunk)
 
     def forward(self, params, batch, **kw):
         return tfm.forward(params, self.cfg, batch, **kw)

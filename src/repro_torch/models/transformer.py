@@ -1,39 +1,46 @@
 """Model assembly: block groups -> per-layer modules -> LM.
 
-The port's copy of the JAX package's ``models/transformer.py`` for the
-dense GQA decoders: embed -> [block groups] -> final norm -> (tied or
-separate) LM head.  The reference stacks each group's params over a
-``layers`` axis and scans them; here :class:`Transformer` holds one
-module a layer (an ``nn.ModuleList`` a group) and :func:`run_groups` is a
-Python loop over the layers, with no remat: this is the serving path.
-The patch frontend is the reference's stub (precomputed patch
-embeddings arrive as inputs).
+The port's copy of the JAX package's ``models/transformer.py`` for GQA
+decoders with dense or routed-expert (MoE) feed-forward blocks: embed ->
+[block groups] -> final norm -> (tied or separate) LM head, and the
+sequence-chunked next-token loss :func:`lm_loss`.  The reference stacks
+each group's params over a ``layers`` axis and scans them; here
+:class:`Transformer` holds one module a layer (an ``nn.ModuleList`` a
+group) and :func:`run_groups` is a Python loop over the layers.  With
+``remat`` each layer's body (the reference's scan body) and each loss
+chunk run under ``torch.utils.checkpoint``, so their activations are
+recomputed in the backward pass instead of kept.  The patch frontend is
+the reference's stub (precomputed patch embeddings arrive as inputs).
 
-Not ported yet (``ROADMAP.md`` Queue 1): MoE blocks, MLA, RWKV-6,
-RG-LRU, the encoder and cross-attention, and ``lm_loss`` (training).
-Building a model that needs one raises ``NotImplementedError``.
+Not ported yet (``ROADMAP.md`` Queue 1): MLA, RWKV-6, RG-LRU, the
+encoder and cross-attention, and MoE's ``shard_map`` dispatch.  Building
+a model that needs one raises ``NotImplementedError``.
 
 The functional API takes ``params`` as a :class:`Transformer` or as the
-nested dict :func:`_cast_params` makes of one; ``batch`` holds tensors
-on the params' device.
+nested dict :func:`param_dict` makes of one (any tensors: a trainer
+passes leaves that require gradients); ``batch`` holds tensors on the
+params' device.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn_mod
+from . import moe as moe_mod
 from .common import BlockDef, ModelConfig, ParamSpec, activation, dense, \
     layernorm, map_specs, rmsnorm
 
 _QUEUE = "not ported yet (ROADMAP.md Queue 1)"
 
 
-def _check_supported(blk: BlockDef) -> None:
+def _check_supported(blk: BlockDef, cfg: ModelConfig) -> None:
     if blk.kind != "attn":
         raise NotImplementedError(f"{blk.kind} blocks are {_QUEUE}")
-    if blk.moe:
-        raise NotImplementedError(f"MoE blocks are {_QUEUE}")
+    if blk.moe and cfg.moe_impl == "shardmap":
+        raise NotImplementedError("MoE's shard_map dispatch is not ported "
+                                  "yet (ROADMAP.md Queue 1 item 7)")
     if blk.cross_attn:
         raise NotImplementedError(f"cross-attention blocks are {_QUEUE}")
 
@@ -74,12 +81,15 @@ def mlp_apply(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def block_param_specs(cfg: ModelConfig, blk: BlockDef) -> dict:
-    _check_supported(blk)
+    _check_supported(blk, cfg)
     sp: dict = {}
     sp.update(_norm_specs(cfg, "ln1"))
     sp["attn"] = attn_mod.gqa_param_specs(cfg)
     sp.update(_norm_specs(cfg, "ln2"))
-    sp["mlp"] = mlp_param_specs(cfg)
+    if blk.moe:
+        sp["moe"] = moe_mod.moe_param_specs(cfg)
+    else:
+        sp["mlp"] = mlp_param_specs(cfg)
     return sp
 
 
@@ -119,8 +129,10 @@ def model_param_specs(cfg: ModelConfig) -> dict:
 # ======================================================================
 class ParamTree(nn.Module):
     """A nested dict of tensors as a module: ``tree[name]`` is a
-    parameter or a sub-tree.  Parameters carry no gradient: this is the
-    serving path (training comes with ``lm_loss``, Queue 1)."""
+    parameter or a sub-tree.  Parameters are registered without
+    gradients, so serving builds no autograd graph; ``requires_grad_()``
+    turns them on, and the trainer (``train/loop.py``) differentiates
+    with respect to detached aliases of them instead."""
 
     def __init__(self, tree: dict):
         super().__init__()
@@ -165,7 +177,7 @@ class Transformer(ParamTree):
     def __init__(self, cfg: ModelConfig, tree: dict):
         for pat, _ in cfg.groups:
             for blk in pat:
-                _check_supported(blk)
+                _check_supported(blk, cfg)
         top = {k: v for k, v in tree.items() if k != "groups"}
         super().__init__(top)
         self.cfg = cfg
@@ -175,14 +187,41 @@ class Transformer(ParamTree):
 
     def tree(self) -> dict:
         """The reference's layout: each group's layers stacked again."""
-        out = {n: p for n, p in self._parameters.items()}
-        out["groups"] = [_stack([layer.tree() for layer in g])
-                         for g in self.groups]
-        return out
+        return stack_layers(param_dict(self))
 
     def forward(self, batch: dict, caches=None, positions=None):
         return forward(self, self.cfg, batch, caches=caches,
                        positions=positions)
+
+
+def param_dict(params) -> dict:
+    """A :class:`Transformer`'s tensors as a nested dict: the
+    reference's tree with each group a list of one ``{"b<i>": ...}`` dict
+    a layer (the layout the functional API, the optimizer and
+    :func:`_cast_params` work on).  A dict is returned as it is."""
+    if not isinstance(params, Transformer):
+        return params
+    tree = {n: p for n, p in params._parameters.items()}
+    tree["groups"] = [[layer.tree() for layer in g] for g in params.groups]
+    return tree
+
+
+def stack_layers(tree: dict) -> dict:
+    """:func:`param_dict`'s layout -> the reference's (each group's
+    layers stacked on a leading axis)."""
+    return dict(tree, groups=[_stack(g) for g in tree["groups"]])
+
+
+def unstack_layers(tree: dict) -> dict:
+    """:func:`stack_layers`' inverse (views of the stacked tensors)."""
+    return dict(tree, groups=[
+        [_unstack(g, i) for i in range(_layers(g))] for g in tree["groups"]])
+
+
+def _layers(tree) -> int:
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree.shape[0]
 
 
 # ======================================================================
@@ -195,7 +234,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     out = []
     for pat, rep in cfg.groups:
         for blk in pat:
-            _check_supported(blk)
+            _check_supported(blk, cfg)
         out.append([{f"b{i}": {"kv": attn_mod.gqa_init_cache(
             cfg, blk, batch, max_len, dtype, device)}
             for i, blk in enumerate(pat)} for _ in range(rep)])
@@ -207,7 +246,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 # ======================================================================
 def apply_block(blk: BlockDef, bp, cfg: ModelConfig, x: torch.Tensor,
                 positions, bcache):
-    _check_supported(blk)
+    _check_supported(blk, cfg)
     new_cache = dict(bcache) if bcache is not None else None
     h = _apply_norm(cfg, bp, "ln1", x)
     o, kv = attn_mod.gqa_apply(
@@ -217,29 +256,50 @@ def apply_block(blk: BlockDef, bp, cfg: ModelConfig, x: torch.Tensor,
         new_cache["kv"] = kv
     x = x + o
     h2 = _apply_norm(cfg, bp, "ln2", x)
-    x = x + mlp_apply(bp["mlp"], cfg, h2)
+    if blk.moe:
+        x = x + moe_mod.moe_apply(bp["moe"], cfg, h2)
+    else:
+        x = x + mlp_apply(bp["mlp"], cfg, h2)
     return x, new_cache
 
 
-def run_groups(groups_cfg, gparams_list, x, caches, *, cfg, positions):
-    """Every layer of every group in order (a Python loop: no scan, no
-    remat).  ``gparams_list[g][layer]`` and ``caches[g][layer]`` hold
-    one layer's ``{"b<i>": ...}``."""
+def _layer(pat, lp, cfg: ModelConfig, x, positions):
+    """One layer (one repeat of the group's pattern) with no cache: the
+    body that ``remat`` checkpoints."""
+    for i, blk in enumerate(pat):
+        x, _ = apply_block(blk, lp[f"b{i}"], cfg, x, positions, None)
+    return x
+
+
+def run_groups(groups_cfg, gparams_list, x, caches, *, cfg, positions,
+               remat: bool = False):
+    """Every layer of every group in order (a Python loop, no scan).
+    ``gparams_list[g][layer]`` and ``caches[g][layer]`` hold one layer's
+    ``{"b<i>": ...}``.  ``remat`` (no caches) recomputes each layer's
+    activations in the backward pass, as the reference's
+    ``jax.checkpoint`` around its scan body does."""
+    if caches is None:
+        for (pat, _), layers in zip(groups_cfg, gparams_list):
+            for lp in layers:
+                if remat:
+                    x = checkpoint(_layer, pat, lp, cfg, x, positions,
+                                   use_reentrant=False,
+                                   preserve_rng_state=False)
+                else:
+                    x = _layer(pat, lp, cfg, x, positions)
+        return x, None
     new_caches = []
     for gi, (pat, rep) in enumerate(groups_cfg):
-        gc = caches[gi] if caches is not None else None
         out = []
         for li in range(rep):
-            lp = gparams_list[gi][li]
-            lc = gc[li] if gc is not None else None
+            lp, lc = gparams_list[gi][li], caches[gi][li]
             lc_new = {}
             for i, blk in enumerate(pat):
-                bc = lc[f"b{i}"] if lc is not None else None
                 x, lc_new[f"b{i}"] = apply_block(
-                    blk, lp[f"b{i}"], cfg, x, positions, bc)
+                    blk, lp[f"b{i}"], cfg, x, positions, lc[f"b{i}"])
             out.append(lc_new)
-        new_caches.append(out if gc is not None else None)
-    return x, (new_caches if caches is not None else None)
+        new_caches.append(out)
+    return x, new_caches
 
 
 def embed_inputs(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
@@ -254,13 +314,10 @@ def embed_inputs(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
 
 def _cast_params(params, dtype: torch.dtype):
     """Mixed precision: master params may be fp32; compute in cfg.dtype.
-    Returns the nested dict (group layers as lists) of cast tensors; a
-    tensor already in ``dtype`` is passed through, not copied."""
-    if isinstance(params, Transformer):
-        tree = {n: p for n, p in params._parameters.items()}
-        tree["groups"] = [[layer.tree() for layer in g]
-                          for g in params.groups]
-        params = tree
+    Returns :func:`param_dict`'s nested dict of cast tensors; a tensor
+    already in ``dtype`` is passed through, not copied, and the cast is
+    differentiable (an f32 master's gradient flows through it)."""
+    params = param_dict(params)
 
     def cast(t):
         if isinstance(t, dict):
@@ -273,20 +330,20 @@ def _cast_params(params, dtype: torch.dtype):
 
 
 def forward(params, cfg: ModelConfig, batch: dict, *, caches=None,
-            positions=None):
+            positions=None, remat: bool = False):
     """Returns (hidden (B,T,D), new_caches)."""
     return _forward(_cast_params(params, cfg.dtype), cfg, batch, caches,
-                    positions)
+                    positions, remat)
 
 
 def _forward(params: dict, cfg: ModelConfig, batch: dict, caches,
-             positions):
+             positions, remat: bool = False):
     """:func:`forward` on params already cast to ``cfg.dtype``."""
     x = embed_inputs(params, cfg, batch)
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
     x, new_caches = run_groups(cfg.groups, params["groups"], x, caches,
-                               cfg=cfg, positions=positions)
+                               cfg=cfg, positions=positions, remat=remat)
     x = _apply_norm(cfg, params, "final", x)
     return x, new_caches
 
@@ -299,6 +356,45 @@ def logits_fn(params, cfg: ModelConfig, hidden: torch.Tensor):
 def _logits(params: dict, cfg: ModelConfig, hidden: torch.Tensor):
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return torch.matmul(hidden, w.to(hidden.dtype))
+
+
+def _chunk_loss(h: torch.Tensor, labels: torch.Tensor,
+                w: torch.Tensor) -> torch.Tensor:
+    """Summed ``logsumexp - gold`` of one chunk: h (B,c,D), labels (B,c);
+    the logits in float32, from a product in h's dtype."""
+    logits = torch.matmul(h, w.to(h.dtype)).float()
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.sum(torch.logsumexp(logits, dim=-1) - gold)
+
+
+def lm_loss(params, cfg: ModelConfig, batch: dict, *, remat: bool = True,
+            loss_chunk: int = 512) -> torch.Tensor:
+    """Next-token cross-entropy, sequence-chunked: the (B, T, V) logits
+    are never materialised, one (B, T / n_chunks, V) chunk at a time,
+    where n_chunks is the largest count <= T // loss_chunk that divides
+    T.  Summed in float32 and divided by B * T.  ``remat`` also
+    recomputes each chunk's logits in the backward pass."""
+    cparams = _cast_params(params, cfg.dtype)
+    hidden, _ = _forward(cparams, cfg, batch, None, None, remat)
+    labels = batch["labels"]
+    if cfg.frontend == "patch" and "patches" in batch:
+        hidden = hidden[:, -labels.shape[1]:]
+    b, t, _ = hidden.shape
+    w = cparams["embed"].T if cfg.tie_embeddings else cparams["lm_head"]
+    n_chunks = max(t // loss_chunk, 1)
+    while t % n_chunks:          # largest chunk count dividing t
+        n_chunks -= 1
+    c = t // n_chunks
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(n_chunks):
+        h, lab = hidden[:, i * c:(i + 1) * c], labels[:, i * c:(i + 1) * c]
+        if remat:
+            total = total + checkpoint(_chunk_loss, h, lab, w,
+                                       use_reentrant=False,
+                                       preserve_rng_state=False)
+        else:
+            total = total + _chunk_loss(h, lab, w)
+    return total / (b * t)
 
 
 def prefill(params, cfg: ModelConfig, batch: dict, cache):

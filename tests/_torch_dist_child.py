@@ -13,7 +13,9 @@ distances within 1e-5, update acks equal (the reference child's
 contract, ``tests/_dist_stream_child.py``), and holds every distributed
 answer to a dict + linear-scan oracle (each id live, once, at its newest
 vector's distance).  ``stale_entries`` forces the case where the shards
-must agree on a fold's survivors.  It also checks one readback a
+must agree on a fold's survivors; ``cold_compaction_epochs`` queries
+updated ids at their older vectors while one engine has compacted its
+cold chains and the other has not.  It also checks one readback a
 steady-state round on every rank, ids above 2^24 through the routing
 payloads against the oracle, and a 4-rank distributed checkpoint round
 trip (a load at another ``n_model`` raises).
@@ -250,6 +252,70 @@ def stale_entries(mesh, cold: bool) -> dict:
             "oracle_violations": bad}
 
 
+def cold_compaction_epochs(mesh) -> dict:
+    """Ids inserted and pushed into the cold chains by fresh inserts,
+    then updated to a new vector (fewer than ``max_tombstones``, so no
+    merge drops the older entries) and pushed on until a cold compaction
+    folds one engine's chains and not yet the other's: the distributed
+    backend compacts every shard's chain synchronously once any routing
+    table passes its watermark, the single device folds its per-table
+    chains on a background thread and installs the fold at a later
+    round.  While the two engines' compaction counts differ, queries at
+    every older vector, each engine's answers held to the dict +
+    linear-scan oracle (each id live, once, at its newest vector's
+    distance).  ``found_older`` counts, per engine, the answers that
+    hold the queried id."""
+    deng, seng, vec = engines(mesh, cold=True)
+    deng.warmup()
+    ids = list(range(200, 224))
+    snap, nxt = {}, 1000
+
+    def fill(until):
+        nonlocal nxt
+        for _ in range(200):
+            if until():
+                return
+            for _ in range(16):
+                snap[nxt] = vec(nxt, 1)
+                deng.insert(nxt, snap[nxt]), seng.insert(nxt, snap[nxt])
+                nxt += 1
+            deng.flush(), seng.flush()
+        raise AssertionError("the trace never reached its state")
+
+    def compactions():
+        return [sum(ev == "cold_compact" for ev in e.backend.maintenance_log)
+                for e in (deng, seng)]
+
+    for i in ids:
+        snap[i] = vec(i, 1)
+        deng.insert(i, snap[i]), seng.insert(i, snap[i])
+    deng.flush(), seng.flush()
+    fill(lambda: min(deng.stats()["spills"], seng.stats()["spills"]) >= 2)
+    spilled = [deng.stats()["spills"], seng.stats()["spills"]]
+    for i in ids:
+        snap[i] = vec(i, 2)
+        deng.update(i, snap[i]), seng.update(i, snap[i])
+    deng.flush(), seng.flush()
+    fill(lambda: compactions()[0] != compactions()[1])
+    counts = compactions()
+    asked = [(i, vec(i, 1)) for i in ids]
+    tickets = [(deng.query(q, k=5), seng.query(q, k=5)) for _, q in asked]
+    deng.flush(), seng.flush()
+    bad, found, mism = [0, 0], [0, 0], 0
+    for (i, q), (td, ts) in zip(asked, tickets):
+        got = deng.result(td), seng.result(ts)
+        for e, a in enumerate(got):
+            bad[e] += not oracle_live(a, q, snap)
+            found[e] += int(i in a[0].tolist())
+        mism += not (np.array_equal(got[0][0], got[1][0])
+                     and np.allclose(got[0][1], got[1][1], atol=1e-5))
+    return {"queries": len(asked), "spills_before_update": spilled,
+            "compactions": counts, "oracle_violations": bad,
+            "found_older": found, "mismatches": mism,
+            "merges": [deng.stats()["merges"], seng.stats()["merges"]],
+            "spills": [deng.stats()["spills"], seng.stats()["spills"]]}
+
+
 def steady_readbacks(deng) -> list:
     """[rounds, readbacks] of one steady-state insert flush."""
     for i in range(16):
@@ -361,6 +427,7 @@ def main():
         out["strict_1x4"] = run_trace(mesh, False, "strict", 12, 80)
         out["stale_entries"] = stale_entries(mesh, cold=False)
         out["stale_entries_cold"] = stale_entries(mesh, cold=True)
+        out["cold_compaction_epochs"] = cold_compaction_epochs(mesh)
         out["big_ids"] = big_ids(mesh)
         out["checkpoint"] = checkpoint(mesh, ckpt)
         print("TORCH_DIST_RESULT " + json.dumps(out), flush=True)

@@ -771,3 +771,86 @@ def test_lm_and_datastore_default_to_the_card():
     assert out.shape == (4, 4) and stats["datastore_size"] == 260
     assert ((0 <= out) & (out < model.cfg.vocab_size)).all()
     assert ops.LAUNCHES["lsh_hash"] > 0 and ops.LAUNCHES["gather_rank"] > 0
+
+
+# ======================================================================
+# training
+# ======================================================================
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["smollm_135m", "llama4_scout_17b_a16e"])
+def test_train_steps_cpu_equal_card(arch):
+    """Three f32 train steps (remat, AdamW with a master copy) of the
+    same reduced model on the CPU and on the card (no TF32): losses and
+    grad norms within 1e-4, every param within 1e-4 in norm, and each
+    MoE call routed alike."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch import convert
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import param_dict
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import make_train_step
+    assert not torch.backends.cuda.matmul.allow_tf32
+    model, cpu = _lm(arch, reduced=True, dtype=torch.float32, device="cpu")
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    data = SyntheticLM(model.cfg.vocab_size, 32, 4, seed=3)
+    real = moe.routing
+    runs = {}
+    start = {"cpu": cpu, "cuda": convert.params_from_numpy(
+        model.cfg, convert.params_to_numpy(cpu), device="cuda")}
+    for dev, params in start.items():
+        step = make_train_step(model, None, opt_cfg, 16)
+        opt = adamw_init(opt_cfg, param_dict(params))
+        metrics, routes = [], []
+
+        def keep(p, cfg, x):
+            r = real(p, cfg, x)
+            routes.append((r["expert"].cpu(), r["keep"].cpu()))
+            return r
+        moe.routing = keep
+        try:
+            for i in range(3):
+                batch = {k: torch.from_numpy(v).to(dev)
+                         for k, v in data.batch(i).items()}
+                params, opt, m = step(params, opt, batch)
+                metrics.append([float(m["loss"]), float(m["grad_norm"])])
+        finally:
+            moe.routing = real
+        runs[dev] = (metrics, routes,
+                     [t.cpu() for t in tree_leaves(param_dict(params))])
+    (m0, r0, p0), (m1, r1, p1) = runs["cpu"], runs["cuda"]
+    np.testing.assert_allclose(m1, m0, rtol=1e-4, atol=0)
+    for a, b in zip(p0, p1):
+        assert float((b - a).norm() / a.norm()) <= 1e-4
+    assert len(r0) == len(r1) and (len(r0) > 0) == (arch != "smollm_135m")
+    for (e0, k0), (e1, k1) in zip(r0, r1):
+        assert torch.equal(e0, e1) and torch.equal(k0, k1)
+
+
+@pytest.mark.cuda
+def test_trainer_defaults_to_the_card_and_resumes(tmp_path):
+    """A ``Trainer`` built with no device trains on CUDA, checkpoints,
+    and a restart from its checkpoint lands on the card with the saved
+    state."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch import configs
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig, Trainer
+    cfg = configs.get_config("llama4_scout_17b_a16e", reduced=True)
+    data = SyntheticLM(cfg.vocab_size, 32, 2)
+
+    def tcfg(steps):
+        return TrainConfig(steps=steps, ckpt_every=2, log_every=100,
+                           ckpt_dir=str(tmp_path), loss_chunk=16,
+                           opt=AdamWConfig(lr=1e-3, warmup_steps=1,
+                                           total_steps=4))
+    first = Trainer(build_model(cfg), data, tcfg(2)).run(resume=False)
+    assert first["params"].embed.is_cuda and first["opt"].step.is_cuda
+    out = Trainer(build_model(cfg), data, tcfg(4)).run(resume=True)
+    assert len(out["losses"]) == 2 and int(out["opt"].step) == 4
+    assert np.isfinite(out["losses"]).all()

@@ -652,6 +652,23 @@ def test_four_ranks_agree_on_fold_survivors(four_ranks, case):
     assert rec["oracle_violations"] == 0, rec
 
 
+def test_four_ranks_cold_compaction_at_another_epoch(four_ranks):
+    """Updated ids whose two versions sit in cold segments, queried at
+    their older vectors while the distributed backend has compacted its
+    shards' chains and the single device has not yet installed its
+    background fold: the answers may differ between the engines (one
+    still finds ids through their older entries), and each engine's
+    answers hold to the dict + linear-scan oracle."""
+    recs = [r["cold_compaction_epochs"] for r in four_ranks]
+    assert all(r == recs[0] for r in recs)
+    rec = recs[0]
+    assert rec["queries"] == 24
+    assert min(rec["spills_before_update"]) >= 1     # v1 reached the cold
+    assert rec["compactions"][0] != rec["compactions"][1], rec
+    assert rec["merges"] == [0, 0], rec              # no merge dropped v1
+    assert rec["oracle_violations"] == [0, 0], rec
+
+
 def test_four_ranks_large_ids_and_checkpoint(four_ranks):
     for r in four_ranks:
         assert r["big_ids"]["found"] == 3
