@@ -29,7 +29,7 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    kernel), whose ids are also held against the plain version's;
 6. the stream engine on that index (``stream``): the streaming
    benchmark's 50/25/12.5/12.5 query/insert/delete/update mix in windows
-   of 256 requests, 16,384 measured after a warm prefix, the counts set
+   of 256 requests, 8,192 measured after a warm prefix, the counts set
    to 0 just before and read just after, every answer held to a
    window-mode oracle on the card; requests/s against the same stream as
    per-request ``PFOIndex`` calls, flush and request latencies, one flag
@@ -43,7 +43,7 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    hardlinked) and restored with the same answers;
 8. the distributed engine (``dist``) on a one-rank NCCL group: a
    ``DistStreamEngine`` and a ``StreamEngine`` on the card with the same
-   projections get the same trace (32,768 inserts, then 8,192 requests of
+   projections get the same trace (16,384 inserts, then 8,192 requests of
    the stream mix in windows of 256, one forced seal, one forced merge)
    and answer alike; requests/s of both, readbacks, implicit syncs and
    collectives a round; a distributed checkpoint round trip;
@@ -53,7 +53,7 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    datastore leaves); then smollm_135m at full width in bf16 (random
    weights from a seeded ``torch.Generator``) behind ``ServingEngine``
    with the PFO kNN-LM head on a ``StreamEngine``, over a datastore
-   filled with 16,384 memories (the model's hidden states over
+   filled with 8,192 memories (the model's hidden states over
    ``SyntheticLM`` text -> the next token), the counts set to 0 just
    before the fill and read after the recall oracle: three rounds of
    four requests, decode == forward, the greedy tokens with the head
@@ -87,18 +87,36 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    every routing difference at a near tie of the router's bf16 logits;
    no pair dropped at decode, tokens per expert, and the pairs one 4 x
    256-token prefill drops by capacity;
-11. the paper's comparators on the hot path's own items and queries
+11. the remaining block kinds (``families``): (a) reduced
+   deepseek_v2_236b (MLA + MoE), rwkv6_7b, recurrentgemma_9b (RG-LRU
+   with local attention) and whisper_medium (encoder + cross-attention)
+   in f32, their zero-init leaves drawn (std 0.1), on the CPU and on the
+   card: forward, prefill and decode logits and every cache and state
+   tensor within 1e-4, one train step's loss and grad norm within 1e-4;
+   (b) each at its published widths (deepseek_v2 cut to its dense layer
+   0 and one MoE layer, 2 of 60), bf16 weights from a seeded generator on
+   the card, behind ``ServingEngine`` with the PFO kNN-LM head over a
+   datastore of 1,024 of its own hidden states (one insert call, the
+   ``lm`` phase's index config at its d_model): two rounds of 4
+   requests, prompt 64 (whisper with 1,500 frames), 16 new tokens,
+   lambda 0.3, k 8; prefill and decode-step ms, decode == forward within
+   3e-2 (relative in norm; deepseek at 4 x 20 tokens, where no pair
+   drops, on positions routed alike), launches a decode step, peak
+   memory; its kNN head's ``lsh_hash`` and ``gather_rank`` at its
+   d_model counted, held against their plain versions and timed (the
+   kernel rows' ``families`` entries);
+12. the paper's comparators on the hot path's own items and queries
    (``baselines``): ``ZOrderIndex`` and ``MultiProbeFlat`` inserted and
    queried beside PFO's answer, each with recall@10 and Eq. 1's error
    ratio against ``BruteForce``; ``SerializedPFO`` against a dispatched
    ``PFOIndex`` on 500 vectors, its forest equal on the CPU and on the
    card; counts set to 0 just before each comparator and read just
    after;
-12. the cold path at glove-100 width: 800,000 inserts with churn into
+13. the cold path at glove-100 width: 800,000 inserts with churn into
    an index whose store holds a third of them, spilling to file-backed
    segments; queries of cold-only items and deletes of them, counts set
    to 0 just before and read just after;
-13. each kernel against its plain version on the card, at the shapes its
+14. each kernel against its plain version on the card, at the shapes its
    path gave it, with its time, the plain version's time, one PyTorch
    library call's time and the least time the card could take (the
    bound): the larger of the bytes the call must move over the memory
@@ -113,7 +131,7 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    step), ``hamming`` through its wrapper, range check included, and
    ``lsh_hash`` and ``gather_rank`` also at the stream's 256-row bucket
    (``stream_bucket``, with their launches by path);
-14. the kernels line, the card's name and power limit, then the last
+15. the kernels line, the card's name and power limit, then the last
     line: ``{"ok": true, "device": {...}}``.
 
 Everything worth keeping is printed as one JSON object per line.
@@ -160,7 +178,9 @@ from repro_torch.kernels.pair_dist import pair_dist_cuda  # noqa: E402
 from repro_torch.kernels.rank_candidates import rank_dots_cuda  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
-from repro_torch.models.transformer import param_dict  # noqa: E402
+from repro_torch.models.common import ParamSpec  # noqa: E402
+from repro_torch.models.transformer import (  # noqa: E402
+    GROUP_KEYS, param_dict)
 from repro_torch.optim import AdamWConfig, adamw_init  # noqa: E402
 from repro_torch.optim.adamw import tree_leaves  # noqa: E402
 from repro_torch.obs import Obs  # noqa: E402
@@ -180,6 +200,8 @@ PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
 PEAK_TF32 = 495e12
 MARGIN = 1e-4            # |projection| below this may flip a hash bit
+FLIP_SIGMAS = 16         # ... or below this many fp32 rounding units (at
+#                          large d; see hash_flips)
 DIST_TOL = 1e-5          # distances, card vs CPU trace
 RANK_TOL = 2e-5          # gather_rank, rank_dots vs plain (the reference)
 PAIR_TOL = 1e-4          # pair_dist vs plain (reference tolerance)
@@ -978,7 +1000,8 @@ def phase_main(args):
 # phase 6: the stream engine at glove-100 width, on the hot path's index
 # ----------------------------------------------------------------------
 STREAM_WARM = 1024          # requests before the measured leg
-STREAM_REQUESTS = 16384     # the measured leg (cut for time from 32,768)
+STREAM_REQUESTS = 8192      # the measured leg (cut for time from 32,768
+#                             and 16,384)
 STREAM_PER_REQUEST = 256    # the same stream, one PFOIndex call a request
 #                             (cut for time)
 STREAM_FLUSH = 256          # requests a window (flush_every)
@@ -1448,7 +1471,8 @@ def phase_checkpoint(args, idx, hot: dict, rows: list) -> None:
 # ----------------------------------------------------------------------
 # phase 8: the distributed engine on a one-rank NCCL group
 # ----------------------------------------------------------------------
-DIST_ITEMS = 32768          # inserts before the mixed leg (cut for time)
+DIST_ITEMS = 16384          # inserts before the mixed leg (cut for time
+#                             from 65,536 and 32,768)
 DIST_REQUESTS = 8192        # the stream phase's mix, windows of STREAM_FLUSH
 DIST_BATCH = 4096           # rounds of the insert prefix (and max_batch)
 
@@ -1693,10 +1717,10 @@ LM_EXAMPLE = dict(L=4, C=2, m=2, l=32, t=4, max_candidates_total=128,
 #: whole table's memories (hidden states crowd into few buckets)
 LM_DATASTORE = dict(LM_EXAMPLE, max_nodes_per_tree=8192,
                     max_leaves_per_tree=40960, store_capacity=1 << 16)
-LM_FILL_SEQS = 16        # SyntheticLM sequences in the datastore, of ...
-LM_FILL_LEN = 1024       # ... 1,024 tokens: 16,384 memories (a real kNN-LM
+LM_FILL_SEQS = 8         # SyntheticLM sequences in the datastore, of ...
+LM_FILL_LEN = 1024       # ... 1,024 tokens: 8,192 memories (a real kNN-LM
 #                          datastore holds ~10^8; cut for chip time from
-#                          32,768)
+#                          32,768 and 16,384)
 LM_FILL_BATCH = 8        # sequences a forward pass
 LM_INSERT = 4096         # rows an insert call
 LM_ROUNDS, LM_REQUESTS, LM_PROMPT, LM_NEW = 3, 4, 16, 16
@@ -2173,19 +2197,21 @@ def route_tap(seen: list):
 
 
 def gap_tap(seen: list):
-    """A ``tapped`` keeper for ``moe.moe_apply``: each call's top expert
-    a token, and how far its router logit lies above the runner-up's, in
-    bf16 ulps at the top logit's magnitude."""
+    """A ``tapped`` keeper for ``moe.moe_apply``: each call's top-k
+    experts a token (sorted by id), and how far the k-th router logit
+    lies above the next one, in bf16 ulps at the k-th's magnitude."""
     def keep(p, cfg, x):
+        k = cfg.top_k
         with torch.no_grad():
             logits = moe_mod.dense(x.reshape(-1, x.shape[-1]),
                                    p["router"]).float()
             top = torch.sort(logits, dim=-1, descending=True, stable=True)
-            _, exp = torch.frexp(top.values[:, 0])
+            _, exp = torch.frexp(top.values[:, k - 1])
             ulp = torch.ldexp(torch.ones_like(top.values[:, 0]), exp - 8)
             seen.append(dict(
-                expert=top.indices[:, 0].reshape(x.shape[:2]).cpu(),
-                gap_ulps=((top.values[:, 0] - top.values[:, 1]) / ulp)
+                expert=torch.sort(top.indices[:, :k], dim=-1).values
+                .reshape(*x.shape[:2], k).cpu(),
+                gap_ulps=((top.values[:, k - 1] - top.values[:, k]) / ulp)
                 .reshape(x.shape[:2]).cpu()))
     return keep
 
@@ -2204,7 +2230,7 @@ def routing_flips(path: list, fwd: list, n_layers: int) -> dict:
             for i in range((len(path) - n_layers) // n_layers)]
         got = torch.cat(steps, dim=1)
         want = fwd[li]["expert"][:, :got.shape[1]]
-        for b, t in (got != want).nonzero().tolist():
+        for b, t in (got != want).any(-1).nonzero().tolist():
             flips.append((b, t, li, float(fwd[li]["gap_ulps"][b, t])))
             first[b] = min(first.get(b, t), t)
     return dict(flips=flips, first=first)
@@ -2560,7 +2586,381 @@ def phase_train(args, card: str) -> None:
 
 
 # ----------------------------------------------------------------------
-# phase 11: the paper's comparators on the hot path's items and queries
+# phase 11: the remaining block kinds (MLA, RWKV-6, RG-LRU, the encoder)
+# ----------------------------------------------------------------------
+FAMILY_ARCHS = ("deepseek_v2_236b", "rwkv6_7b", "recurrentgemma_9b",
+                "whisper_medium")
+#: the reference initialises many of these blocks' leaves to zero (RG-LRU's
+#: conv_w = 0 zeroes its whole branch): they are drawn with this std
+FAMILY_ZEROS_STD = 0.1
+FAMILY_PARITY_T = 12     # tokens of the reduced CPU == card checks
+FAMILY_BATCH, FAMILY_PROMPT, FAMILY_NEW = 4, 64, 16
+FAMILY_ROUNDS = 2        # served rounds (the first warms the card up)
+FAMILY_FILL = (4, 256)   # SyntheticLM sequences x tokens: 1,024 memories
+#: a deep recurrent stack's bf16 decode drifts from its forward as it
+#: goes (a 4-row product rounds elsewhere than the forward's, and the
+#: state carries the difference on): the JAX package's own bf16 decode
+#: drifts past 3e-2 at d = 1,024 x 8 layers, where both packages' f32
+#: decodes stay within 1e-5 (``python3 tests/test_torch_recurrent.py``),
+#: so RWKV-6 and RG-LRU hold decode == forward in f32 (the same weights,
+#: unrounded) within this, and report their bf16 drift by step
+F32_DECODE_TOL = 1e-3
+#: deepseek_v2's decode == forward check runs 4 x (4 + 16) tokens: 480
+#: (token, expert) pairs, under the exact-capacity limit (512), so no
+#: pair drops in the prefill, the decode steps or the forward (at the
+#: served 4 x 64 prompt a prefill drops pairs a longer forward keeps)
+FAMILY_MOE_PROMPT = 4
+
+
+def draw_zero_leaves(model, params, generator: torch.Generator,
+                     std: float = FAMILY_ZEROS_STD) -> None:
+    """Redraw in place, normal with ``std`` from ``generator``, every leaf
+    of ``params`` (``model.init``'s) whose spec initialises it to zero,
+    in the spec tree's sorted key order, layer by layer."""
+    def walk(spec, leaf):
+        if isinstance(spec, ParamSpec):
+            if spec.init == "zeros":
+                leaf.normal_(0.0, std, generator=generator)
+        elif isinstance(spec, dict):
+            for k in sorted(spec):
+                walk(spec[k], leaf[k])
+        else:
+            for s, t in zip(spec, leaf):
+                walk(s, t)
+
+    tree = param_dict(params)
+    with torch.no_grad():
+        for key in sorted(model.param_specs):
+            if key in GROUP_KEYS:
+                for spec, layers in zip(model.param_specs[key], tree[key]):
+                    for layer in layers:
+                        walk(spec, layer)
+            else:
+                walk(model.param_specs[key], tree[key])
+
+
+def family_init(model, seed: int, device):
+    """``model.init`` on a generator seeded ``seed`` on ``device``, then
+    its zero-init leaves drawn from the same generator."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    params = model.init(g, device=device)
+    draw_zero_leaves(model, params, g)
+    return params
+
+
+def family_config(arch: str):
+    """The published config, with deepseek_v2's depth cut to its dense
+    layer 0 and one MoE layer (2 of 60: ~5.4 B params, ~11 GB bf16)."""
+    full = configs.get_config(arch)
+    if arch != "deepseek_v2_236b":
+        return full
+    (dense, _), (moe, _) = full.groups
+    return dataclasses.replace(full, n_layers=2,
+                               groups=((dense, 1), (moe, 1)))
+
+
+def family_features(cfg, batch: int, seed: int, device) -> dict:
+    """An encoder-decoder's stub frame embeddings (B, enc_len, d_model),
+    drawn from a seeded generator; nothing for a decoder."""
+    if cfg.frontend != "audio":
+        return {}
+    g = torch.Generator(device=device).manual_seed(seed)
+    return {"features": torch.randn((batch, cfg.enc_len, cfg.d_model),
+                                    generator=g, device=device)}
+
+
+def cache_tensors(tree) -> list:
+    """Every tensor of a cache tree (KV caches, recurrent states, cross
+    keys and values), in a fixed order."""
+    if torch.is_tensor(tree):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in cache_tensors(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in cache_tensors(v)]
+    return []                                   # a cache's host length
+
+
+def family_parity(seed: int) -> dict:
+    """Each reduced family in f32 with its zero-init leaves drawn, the
+    same weights on the CPU and on the card (TF32 off): forward, prefill
+    and decode logits and every cache and state tensor after the prefill
+    within MODEL_TOL; one train step's loss and grad norm within
+    TRAIN_TOL (relative) and the MoE routing equal."""
+    out = {}
+    for arch in FAMILY_ARCHS:
+        cfg = dataclasses.replace(configs.get_config(arch, reduced=True),
+                                  dtype=torch.float32)
+        model = build_model(cfg)
+        cpu = family_init(model, seed, "cpu")
+        card = convert.params_from_numpy(cfg, convert.params_to_numpy(cpu),
+                                         device=DEVICE)
+        text = SyntheticLM(cfg.vocab_size, FAMILY_PARITY_T, 2,
+                           seed=seed).batch(0)
+        got, train = {}, {}
+        for dev, params in (("cpu", cpu), (DEVICE, card)):
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in text.items()}
+            batch.update(family_features(cfg, 2, seed, "cpu"))
+            batch = {k: v.to(dev) for k, v in batch.items()}
+            inputs = {k: v for k, v in batch.items() if k != "labels"}
+            hidden, _ = model.forward(params, inputs)
+            cache = model.init_cache(2, FAMILY_PARITY_T + 1, device=dev)
+            pl, cache, _ = model.prefill(params, inputs, cache)
+            # copies: the decode step writes the KV caches in place
+            states = [t.to("cpu", copy=True) for t in cache_tensors(cache)]
+            dl, _ = model.decode_step(params, batch["tokens"][:, :1], cache,
+                                      FAMILY_PARITY_T)
+            got[dev] = [t.cpu() for t in (hidden, pl, dl)] + states
+            opt_cfg = AdamWConfig(**TRAIN_PARITY_OPT)
+            routes = []
+            step = make_train_step(model, None, opt_cfg, 4)
+            copy = convert.params_from_numpy(
+                cfg, convert.params_to_numpy(params), device=dev)
+            with tapped(moe_mod, "moe_apply", route_tap(routes)):
+                _, _, m = step(copy, adamw_init(opt_cfg, param_dict(copy)),
+                               batch)
+            train[dev] = (float(m["loss"]), float(m["grad_norm"]), routes)
+        err = max(float((a - b).abs().max())
+                  for a, b in zip(got["cpu"], got[DEVICE]))
+        check(len(got["cpu"]) == len(got[DEVICE]) and err <= MODEL_TOL,
+              f"{arch}: logits or caches CPU vs card {err}")
+        (l0, g0, r0), (l1, g1, r1) = train["cpu"], train[DEVICE]
+        terr = max(abs(l1 - l0) / abs(l0), abs(g1 - g0) / abs(g0))
+        check(terr <= TRAIN_TOL, f"{arch}: train step CPU vs card {terr}")
+        check(len(r0) == len(r1) and all(
+            torch.equal(a["expert"], b["expert"])
+            and torch.equal(a["keep"], b["keep"]) for a, b in zip(r0, r1)),
+            f"{arch}: MoE routing differs CPU vs card")
+        out[arch] = dict(max_abs_err=err, tensors=len(got[DEVICE]),
+                         train_rel_err=terr, loss=l1, moe_calls=len(r1))
+    return out
+
+
+def family_decode_vs_forward(model, params, arch: str, seed: int,
+                             tol: float | None = BF16_TOL) -> dict:
+    """Prefill, then FAMILY_NEW decode steps over given tokens, against
+    one forward over all of them: the relative error in norm of each
+    decoded position's logits, held within ``tol`` (None: reported
+    only).  For an MoE model only positions whose row routed alike up to
+    them are held, and every routing difference must sit at a near tie
+    (the llama4 rule of ``moe_full_width``)."""
+    cfg = model.cfg
+    moe = cfg.n_experts > 0
+    prompt = FAMILY_MOE_PROMPT if moe else FAMILY_PROMPT
+    total = prompt + FAMILY_NEW
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 11)
+    toks = torch.randint(0, cfg.vocab_size, (FAMILY_BATCH, total),
+                         generator=g, device=DEVICE, dtype=torch.int32)
+    feats = family_features(cfg, FAMILY_BATCH, seed + 12, DEVICE)
+    path_gaps, fwd_gaps = [], []
+    with torch.no_grad(), tapped(moe_mod, "moe_apply", gap_tap(path_gaps)):
+        cache = model.init_cache(FAMILY_BATCH, total, device=DEVICE)
+        first, cache, _ = model.prefill(
+            params, {"tokens": toks[:, :prompt], **feats}, cache)
+        logits = [first]
+        for i in range(FAMILY_NEW - 1):
+            pos = prompt + i
+            out, cache = model.decode_step(params, toks[:, pos:pos + 1],
+                                           cache, pos)
+            logits.append(out)
+        del cache
+    with torch.no_grad(), tapped(moe_mod, "moe_apply", gap_tap(fwd_gaps)):
+        hidden, _ = model.forward(params, {"tokens": toks[:, :-1], **feats})
+        want = model.logits(params, hidden[:, prompt - 1:]).float()
+    got = torch.cat(logits, dim=1).float()
+    rel = ((got - want).norm(dim=-1) / want.norm(dim=-1)).cpu()
+    held = torch.ones_like(rel, dtype=torch.bool)
+    flips = []
+    if moe:
+        n_moe = sum(len(p) * r for p, r in cfg.groups if p[0].moe)
+        fl = routing_flips(path_gaps, fwd_gaps, n_moe)
+        flips = fl["flips"]
+        for b, t, li, gap in flips:
+            earlier = any(b2 == b and t2 == t and l2 < li
+                          for b2, t2, l2, _ in flips)
+            check(gap <= NEAR_TIE_ULPS or earlier,
+                  f"{arch}: row {b} position {t} layer {li} routed apart "
+                  f"from the forward {gap} ulps from a tie")
+        for b in range(FAMILY_BATCH):
+            for j in range(FAMILY_NEW):
+                held[b, j] = prompt - 1 + j < fl["first"].get(b, total)
+    err = float(rel[held].max())
+    check(bool(held[:, 0].all()) and (tol is None or err <= tol),
+          f"{arch}: decode differs from forward by {err} (relative in "
+          f"norm, {cfg.dtype})")
+    return dict(dtype=str(cfg.dtype).split(".")[-1], rel_err_max=err,
+                rel_err_by_step=rel.amax(0).tolist(), tol=tol,
+                positions_held=int(held.sum()), positions=int(held.numel()),
+                prompt=prompt, routing_flips=flips)
+
+
+def family_full_width(arch: str, seed: int) -> tuple:
+    """One family at its published widths (``family_config``), bf16
+    weights drawn on the card with the zero-init leaves drawn too, behind
+    ``ServingEngine`` with the PFO kNN-LM head: a datastore of the
+    model's own hidden states over SyntheticLM text (one insert call, the
+    ``lm`` phase's index config at this d_model), FAMILY_ROUNDS rounds of
+    FAMILY_BATCH requests (prompt FAMILY_PROMPT, FAMILY_NEW new tokens;
+    whisper with its 1,500 frames), decode == forward, one decode step
+    traced.  The launch counts are set to 0 before the datastore's fill
+    and read after the served rounds; lsh_hash's and gather_rank's inputs
+    are tapped there and held against their plain versions after."""
+    cfg = family_config(arch)
+    model = build_model(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_arch = t0 = time.perf_counter()
+    params = family_init(model, seed, DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    check(params.embed.dtype == torch.bfloat16 and params.embed.is_cuda,
+          f"{arch}: the model is not bf16 on the card")
+
+    n_seq, n_tok = FAMILY_FILL
+    text = SyntheticLM(cfg.vocab_size, n_tok, n_seq, seed=seed).batch(0)
+    pcfg = PFOConfig(dim=cfg.d_model, **LM_DATASTORE)
+    idx = PFOIndex(pcfg, seed=seed, device=DEVICE)
+    vmap = np.zeros(pcfg.store_capacity, np.int32)
+    vmap[:n_seq * n_tok] = text["labels"].reshape(-1)
+    fill_in, knn_in = {}, {}
+    torch.cuda.synchronize()
+    ops.reset_launches()                          # counts start here ...
+    t0 = time.perf_counter()
+    with torch.no_grad(), \
+            tapped(ops, "lsh_hash", tap_first(fill_in, "lsh_hash")):
+        hid, _ = model.forward(params, {
+            "tokens": torch.from_numpy(text["tokens"]).to(DEVICE),
+            **family_features(cfg, n_seq, seed + 1, DEVICE)})
+        mem = hid.float().reshape(-1, cfg.d_model)
+        del hid
+        idx.insert(np.arange(len(mem), dtype=np.int32), mem)
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    check(idx.n_inserted == len(mem) and idx.stats()["overflow_events"] == 0,
+          f"{arch}: the datastore's fill lost memories")
+
+    stream = StreamEngine(idx)
+    stream.warmup()
+    eng = ServingEngine(model, params, ServeConfig(**LM_SERVE),
+                        pfo_stream=stream, knn_vocab_map=vmap)
+    feats = family_features(cfg, FAMILY_BATCH, seed + 2, DEVICE)
+    served, prefill_ms, step_ms = [], [], []
+    with torch.no_grad(), \
+            tapped(ops, "lsh_hash", tap_first(knn_in, "lsh_hash")), \
+            tapped(ops, "gather_rank", tap_first(knn_in, "gather_rank")):
+        for r in range(FAMILY_ROUNDS):
+            eng.obs = Obs()                       # this round's clock only
+            prompt = SyntheticLM(cfg.vocab_size, FAMILY_PROMPT, FAMILY_BATCH,
+                                 seed=seed + 3).batch(r)["tokens"]
+            served.append(eng.generate({"tokens": prompt, **feats},
+                                       max_new=FAMILY_NEW))
+            snap = eng.obs.snapshot()
+            prefill_ms.append(hist(snap, "serving.prefill_ms")["mean"])
+            step_ms.append(snap["histograms"]["serving.decode_step_ms"])
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)                 # ... and stop here
+    for name in ("lsh_hash", "gather_rank"):
+        check(launches[name] > 0, f"{arch}: no {name} launch: {launches}")
+    out, stats = served[-1]
+    check(out.shape == (FAMILY_BATCH, FAMILY_NEW)
+          and ((0 <= out) & (out < cfg.vocab_size)).all(),
+          f"{arch}: generated tokens out of range")
+    check(stats["datastore_size"] == len(mem) + FAMILY_ROUNDS * FAMILY_BATCH,
+          f"{arch}: online inserts missing: {stats}")
+
+    # one decode step traced: launches and the card's idle share
+    with torch.no_grad():
+        c = model.init_cache(FAMILY_BATCH, FAMILY_PROMPT + 2, device=DEVICE)
+        prompt = torch.from_numpy(prompt).to(DEVICE)
+        logits, c, _ = model.prefill(params, {"tokens": prompt, **feats}, c)
+        tok = torch.argmax(logits[:, 0], -1).to(torch.int32)[:, None]
+        traced = device_profile(lambda: model.decode_step(
+            params, tok, c, FAMILY_PROMPT))
+        del c
+    peak = torch.cuda.max_memory_allocated()
+
+    recurrent = any(b.kind in ("rwkv", "rglru")
+                    for pat, _ in cfg.groups for b in pat)
+    dvf = [family_decode_vs_forward(model, params, arch, seed,
+                                    None if recurrent else BF16_TOL)]
+    if recurrent:                     # held in f32 (F32_DECODE_TOL)
+        del params, eng
+        torch.cuda.empty_cache()
+        cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+        model32 = build_model(cfg32)
+        params = family_init(model32, seed, DEVICE)
+        dvf.append(family_decode_vs_forward(model32, params, arch, seed,
+                                            F32_DECODE_TOL))
+
+    # the kNN head's kernels at this d_model, held and timed
+    x, a_proj = fill_in["lsh_hash"][:2]
+    check(list(x.shape) == [len(mem), cfg.d_model],
+          f"{arch}: lsh_hash tapped off the fill's shape {list(x.shape)}")
+    kernels = dict(lsh_hash_fill=lsh_hash_at(x, a_proj, rounding=True))
+    x, a_proj = knn_in["lsh_hash"][:2]
+    kernels["lsh_hash_knn"] = lsh_hash_at(x, a_proj, rounding=True)
+    kernels["gather_rank_knn"] = gather_rank_at(*knn_in["gather_rank"][:5])
+    check(kernels["gather_rank_knn"]["shape"][2] == cfg.d_model,
+          f"{arch}: gather_rank tapped off the kNN query")
+    del fill_in, knn_in, x, a_proj, mem, stream, idx, params
+    torch.cuda.empty_cache()
+
+    def steps(h):
+        return dict(p50=h["p50"], p99=h["p99"], mean=h["mean"],
+                    n=h["count"])
+    full = configs.get_config(arch)
+    return dict(
+        arch=arch, params=n_params, layers=cfg.layer_count(),
+        published_layers=full.layer_count(), d_model=cfg.d_model,
+        vocab=cfg.vocab_size, dtype="bfloat16", zeros_std=FAMILY_ZEROS_STD,
+        init_s=init_s, memories=n_seq * n_tok, fill_s=fill_s,
+        batch=FAMILY_BATCH, prompt=FAMILY_PROMPT, new=FAMILY_NEW,
+        enc_len=cfg.enc_len or None, **LM_SERVE,
+        prefill_ms=prefill_ms, decode_step_ms=[steps(h) for h in step_ms],
+        decode_vs_forward=dvf, launches_per_decode_step=traced["launches"],
+        traced_decode_step=traced, launches=dict(
+            lsh_hash=launches["lsh_hash"],
+            gather_rank=launches["gather_rank"]),
+        first_tokens=out[:, 0].tolist(), peak_mem_bytes=peak,
+        kernels=kernels, s=time.perf_counter() - t_arch), launches
+
+
+def phase_families(args, card: str, rows: list) -> None:
+    """The remaining block kinds: (a) the four reduced families CPU ==
+    card in f32; (b) each at its published widths (deepseek_v2 cut to 2
+    of 60 layers) behind the kNN-LM ``ServingEngine``.  Their kNN heads'
+    lsh_hash and gather_rank launches and timings at each d_model go into
+    the kernel rows as ``families``."""
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    parity = family_parity(args.seed)
+    emit(phase="families_cpu_vs_card", card=card, results=parity,
+         s=time.perf_counter() - t0)
+    torch.cuda.empty_cache()
+    full, total = {}, {"lsh_hash": 0, "gather_rank": 0}
+    for arch in FAMILY_ARCHS:
+        full[arch], launches = family_full_width(arch, args.seed)
+        for name in total:
+            total[name] += launches[name]
+        emit(phase="family", card=card, **{k: v for k, v in
+                                           full[arch].items()
+                                           if k != "kernels"})
+    for row in rows[:2]:
+        name = row["name"]
+        row.setdefault("launches_by_path", {})["families"] = total[name]
+        row["families"] = {
+            arch: dict({k: v for k, v in f["kernels"].items()
+                        if k.startswith(name)},
+                       launches=f["launches"][name], d=f["d_model"])
+            for arch, f in full.items()}
+    emit(phase="families", card=card, archs=list(full),
+         kernels={a: f["kernels"] for a, f in full.items()},
+         launches=total, s=time.perf_counter() - t_phase)
+
+
+# ----------------------------------------------------------------------
+# phase 12: the paper's comparators on the hot path's items and queries
 # ----------------------------------------------------------------------
 def run_comparator(index, ids, vecs, q, batch: int):
     """Insert (ids, vecs) in batches and answer q once, with the launch
@@ -2706,7 +3106,7 @@ def phase_baselines(args, hot):
 
 
 # ----------------------------------------------------------------------
-# phase 12: the cold path at glove-100 width
+# phase 13: the cold path at glove-100 width
 # ----------------------------------------------------------------------
 COLD_TOMBSTONES = 1 << 17
 COLD_BUDGET = 256
@@ -2886,40 +3286,74 @@ def phase_cold_main(args):
 
 
 # ----------------------------------------------------------------------
-# phase 13: each kernel against its plain version, timed, with its bound
+# phase 14: each kernel against its plain version, timed, with its bound
 # ----------------------------------------------------------------------
-def hash_flips(x, a):
+def hash_flips(x, a, rounding: bool = False) -> dict:
     """lsh_hash's bits on the card against its plain version and against
-    the float64 projection's signs: (bits that differ where the
-    projection lies >= MARGIN from zero, bits that differ from the plain
-    version nearer zero)."""
+    the float64 projection's signs: ``far`` counts the bits that differ
+    where the projection lies outside the near-zero band, ``near`` the
+    bits that differ from the plain version inside it, out of ``in_band``
+    non-zero projections there.
+
+    The band is MARGIN, or with ``rounding`` FLIP_SIGMAS units of an
+    fp32 dot product's typical rounding error, one unit being sqrt(d) *
+    2^-24 * sqrt(sum_i (x_i a_i)^2), where that is wider: at d = 5,120
+    over hidden states of norm ~70 any fp32 product is off by more than
+    MARGIN.  A kernel that rounds its operands to bf16 (1xTF32) is off by
+    ~2^-9 (2^-11) sqrt(sum_i (x_i a_i)^2), 20-50x (6-13x) the band at d =
+    5,120 to 1,024, and flips bits far outside it.  ``plain_err`` is the plain
+    version's largest error in units, which the band must clear."""
     n, words = x.shape[0], a.shape[1] // 32
     got = ops.lsh_hash(x, a)
     plain = ref.ref_lsh_hash(x, a)
     proj64 = x.double() @ a.double()
-    near = (proj64.abs() < MARGIN).reshape(n, words, 32)
+    band, plain_err = torch.full_like(proj64, MARGIN), None
+    if rounding:
+        unit = (x.double().square() @ a.double().square()).sqrt() * (
+            x.shape[1] ** 0.5 * 2.0 ** -24)
+        band = torch.clamp_min(FLIP_SIGMAS * unit, MARGIN)
+        plain_err = float(((x.float() @ a.float()).double() - proj64).abs()
+                          .div(unit.clamp_min(1e-300)).max())
+    inside = proj64.abs() < band
+    near = inside.reshape(n, words, 32)
     shifts = torch.arange(31, -1, -1, device=x.device)
     diff = (((got ^ plain)[..., None] >> shifts) & 1).bool()
     truth = ((((proj64 >= 0).reshape(n, words, 32).long()
                << shifts).sum(-1) ^ got)[..., None] >> shifts) & 1
     far = int((diff & ~near).sum()) + int((truth.bool() & ~near).sum())
-    return far, int((diff & near).sum())
+    # a padded zero row projects to exactly 0 on every route: not counted
+    return dict(far=far, near=int((diff & near).sum()),
+                in_band=int((inside & (proj64 != 0)).sum()),
+                plain_err=plain_err)
 
 
-def lsh_hash_at(x, a) -> dict:
+def lsh_hash_at(x, a, rounding: bool = False) -> dict:
     """lsh_hash on one batch of the path's vectors, through
-    ``lsh_hash_cuda``: its bit flips against the plain version, its
-    times (in turns with ``torch.matmul``) and its bound."""
-    far, near = hash_flips(x, a)
+    ``lsh_hash_cuda``: its bit flips against the plain version (near
+    zero as ``hash_flips`` takes it), its times (in turns with
+    ``torch.matmul``) and its bound."""
+    flips = hash_flips(x, a, rounding)
+    far, near = flips["far"], flips["near"]
     n = x.shape[0]
     check(far == 0, f"lsh_hash: {far} bit flips away from zero at {n} rows")
+    if rounding:
+        # an fp32-accurate kernel flips a band's bit only at its floor
+        # (both it and the plain version err by ~1 unit of FLIP_SIGMAS);
+        # operands rounded to bf16 flip about half of them
+        check(flips["plain_err"] < FLIP_SIGMAS,
+              f"lsh_hash: the plain version errs by {flips['plain_err']} "
+              f"units, past the band's {FLIP_SIGMAS}")
+        check(near <= flips["in_band"] // 4 + 1,
+              f"lsh_hash: {near} flips of {flips['in_band']} in the band")
     d, p = a.shape
     b_ms, b_by = bound_ms(4 * d * p + 4 * n * d + 8 * n * (p // 32),
                           2 * n * d * p)
     plain = cuda_ms(lambda: ref.ref_lsh_hash(x, a))
     ms, lib_ms = paired_ms(lambda: lsh_hash_cuda(x, a),
                            lambda: torch.matmul(x, a))
-    return dict(shape=[n, d, p], far_flips=far, near_zero_flips=near, ms=ms,
+    return dict(shape=[n, d, p], far_flips=far, near_zero_flips=near,
+                in_band=flips["in_band"], plain_err_units=flips["plain_err"],
+                band_units=FLIP_SIGMAS if rounding else None, ms=ms,
                 kernel_ms=kernel_ms(lambda: lsh_hash_cuda(x, a)),
                 plain_ms=plain, library_ms=lib_ms,
                 library_kernel_ms=kernel_ms(lambda: torch.matmul(x, a)),
@@ -3228,6 +3662,8 @@ def main() -> int:
     lm_launches, lm_pair = phase_lm(args, card, rows)
     torch.cuda.empty_cache()
     phase_train(args, card)
+    torch.cuda.empty_cache()
+    phase_families(args, card, rows)
     torch.cuda.empty_cache()
     hot_pair = pair_dist_at(hot["oracle_in"])
     feeds = phase_baselines(args, hot)

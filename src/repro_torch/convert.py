@@ -11,8 +11,9 @@ compared — the cold tier's ``ColdState`` included (``None`` when off).
 
 :func:`params_from_numpy` and :func:`params_to_numpy` carry a model's
 weights across: the JAX package's param pytree (each group's leaves
-stacked over a leading ``layers`` axis; MoE blocks' expert leaves
-included) to the port's ``Transformer`` (one module a layer) and back,
+stacked over a leading ``layers`` axis, an encoder's ``enc_groups``
+alike; every block kind's leaves, MoE experts included) to the port's
+``Transformer`` (one module a layer) and back,
 so both packages can run on the same weights.  :func:`opt_from_numpy`
 and :func:`opt_to_numpy` do the same for AdamW's ``OptState``.
 """

@@ -70,8 +70,10 @@ from .dispatch import (COLLECTIVES, all_to_all_route, dispatch_to_trees,
                        pack_round_flags)
 from .hash_tree import (forest_delete_dispatched, forest_headroom,
                         forest_insert_dispatched, forest_lookup_masked,
-                        forest_query_masked, init_forest, reset_forest_)
+                        forest_query_masked, forest_replace_dispatched,
+                        init_forest, reset_forest_)
 from .index import (INT_MAX, PFOState, _cold_full_threshold, _tombs_threshold,
+                    free_displaced,
                     lsh_tree_config, main_tree_config)
 from .lsh import main_table_keys, make_projections, region_ids
 from .membership import member_sorted
@@ -611,8 +613,13 @@ def make_dist_insert_round(dcfg: DistConfig, mesh, *, route_main: int,
             torch.where((rids >= 0) & alloc_ok, rtree % mtps, -1), mtps,
             tree_main)
         mh_g, mval_g = gather_mailbox(mbox, rh, slots)
-        forest_insert_dispatched(state.main_forest, mh_g,
-                                 mailbox_ids(mbox, rids), mval_g, mcfg)
+        mid_g = mailbox_ids(mbox, rids)
+        # a live re-insert replaces its id's hot entry and frees the
+        # older slot (index.insert_step's repair)
+        left, displaced = forest_replace_dispatched(
+            state.main_forest, mh_g, mid_g, mval_g, mcfg)
+        forest_insert_dispatched(state.main_forest, mh_g, left, mval_g, mcfg)
+        store = free_displaced(store, displaced, mid_g)
         # rows whose local dispatch overflowed stored no reference to
         # their slot: reclaim it, so the retry cannot leak the store
         store = dense_free(store, slots, (rids >= 0) & alloc_ok & m_recv_ovf,

@@ -189,12 +189,11 @@ def forest_query_masked(forest: TreeState, tids: torch.Tensor,
     return ids[:, :cap], vals[:, :cap], cnt
 
 
-def forest_lookup_masked(forest: TreeState, tids: torch.Tensor,
-                         hs: torch.Tensor, vids: torch.Tensor,
-                         cfg: TreeConfig):
-    """Batched fixed-trip exact-id lookup, newest version first:
-    (N,) -> (val, found bool), (N,) each."""
-    tids = tids.to(torch.int64)
+def _lookup_leaf(forest: TreeState, tids: torch.Tensor, hs: torch.Tensor,
+                 vids: torch.Tensor, cfg: TreeConfig):
+    """Batched fixed-trip exact-id lookup, newest version first: (N,) ->
+    (leaf index, found bool), (N,) each; the chain is read
+    ``max_chain_eff`` links deep."""
     _, _, _, v = _descend(forest, tids, hs, cfg)
     flat = _chain_slots(forest, tids, torch.where(v > 0, v, 0),
                         cfg.max_chain_eff)                    # (N, mc)
@@ -202,9 +201,17 @@ def forest_lookup_masked(forest: TreeState, tids: torch.Tensor,
     safe = flat.clamp_min(0)
     ftids = tids[:, None].expand(flat.shape)
     hit = valid & (forest.leaf_id[ftids, safe] == vids[:, None])
-    found = hit.any(1)
     first = hit.to(torch.uint8).argmax(1)     # first True == newest version
-    leaf = safe.gather(1, first[:, None])[:, 0]
+    return safe.gather(1, first[:, None])[:, 0], hit.any(1)
+
+
+def forest_lookup_masked(forest: TreeState, tids: torch.Tensor,
+                         hs: torch.Tensor, vids: torch.Tensor,
+                         cfg: TreeConfig):
+    """Batched fixed-trip exact-id lookup, newest version first:
+    (N,) -> (val, found bool), (N,) each."""
+    tids = tids.to(torch.int64)
+    leaf, found = _lookup_leaf(forest, tids, hs, vids, cfg)
     val = torch.where(found, forest.leaf_val[tids, leaf], -1)
     return val, found
 
@@ -325,6 +332,51 @@ def forest_insert_dispatched(forest: TreeState, per_tree_h: torch.Tensor,
     for k in range(vids.shape[0]):
         _tree_insert(forest, rows, hs[k], vids[k], vals[k], vids[k] >= 0, cfg)
     return forest
+
+
+def forest_replace_dispatched(forest: TreeState, per_tree_h: torch.Tensor,
+                              per_tree_id: torch.Tensor,
+                              per_tree_val: torch.Tensor, cfg: TreeConfig):
+    """Replace, before a round's inserts, the entries of ids the forest
+    already holds (the MainTable, whose key is a function of the id
+    alone, so both versions of an id land in one chain): (T, K) mailbox
+    tensors as :func:`forest_insert_dispatched` takes them.
+
+    A slot whose id a later slot of its tree's mailbox repeats is
+    dropped (the later one wins, as a dict's assignment does); a slot
+    whose id the chain it lands on holds, as far as a lookup reads it
+    (``max_chain_eff`` links), overwrites that leaf's value, the newest
+    version's.  Every slot runs at once, as one batched lookup: no slot
+    of a round can find a leaf another slot of the round adds, once the
+    repeats are dropped.  Returns (ids, displaced), both (T, K): the ids
+    with the dropped and replacing slots set to -1 (what is left to
+    insert), and the values the round gives up, -1 where none (a
+    replaced leaf's older value, a dropped slot's own)."""
+    ids = per_tree_id.to(torch.int64)
+    vals = per_tree_val.to(torch.int64)
+    n_trees, k = ids.shape
+    live = ids >= 0
+    later = torch.triu(torch.ones((k, k), dtype=torch.bool,
+                                  device=ids.device), diagonal=1)
+    repeated = ((ids[:, :, None] == ids[:, None, :]) & later
+                & live[:, None, :]).any(2) & live            # (T, K)
+    ask = live & ~repeated
+    tids = torch.arange(n_trees, device=ids.device)[:, None].expand(
+        n_trees, k).reshape(-1)
+    leaf, found = _lookup_leaf(forest, tids, per_tree_h.to(torch.int64)
+                               .reshape(-1), torch.where(ask, ids, -1)
+                               .reshape(-1), cfg)
+    found = found & ask.reshape(-1)
+    cur = forest.leaf_val[tids, leaf]
+    # found leaves are distinct (each holds an id its tree's asking rows
+    # name once): each adds (new - old) at its leaf and every other row
+    # adds 0 wherever it points, so no write races another
+    forest.leaf_val.index_put_((tids, leaf), torch.where(
+        found, vals.reshape(-1) - cur, 0), accumulate=True)
+    older = torch.where(found, cur, -1)
+    found = found.reshape(n_trees, k)
+    displaced = torch.where(repeated, vals, older.reshape(n_trees, k))
+    return torch.where(found | repeated, -1, ids), displaced
 
 
 def _chain_order(forest: TreeState) -> torch.Tensor:

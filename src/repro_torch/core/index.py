@@ -47,7 +47,8 @@ from .dispatch import (FLAG_ANY_PENDING, FLAG_COLD_FULL, FLAG_COLD_MISS,
 from .hash_tree import (TreeConfig, TreeState, forest_delete_dispatched,
                         forest_headroom, forest_insert_dispatched,
                         forest_lookup_masked, forest_query_masked,
-                        init_forest, reset_forest_)
+                        forest_replace_dispatched, init_forest,
+                        reset_forest_)
 from .lsh import main_table_keys, make_projections, region_ids
 from .membership import member_sorted
 from .scatter import masked_put_
@@ -223,8 +224,15 @@ def insert_step(state: PFOState, ids: torch.Tensor, vecs: torch.Tensor,
     m_req = torch.where(main_active & have_slot, mtree, -1)
     mbox, m_ovf = dispatch_to_trees(m_req, cfg.main_n_trees, main_capacity)
     (mh_g, mval_g) = gather_mailbox(mbox, mh, slots)
-    forest_insert_dispatched(state.main_forest, mh_g, mailbox_ids(mbox, ids),
-                             mval_g, main_tree_config(cfg))
+    mid_g = mailbox_ids(mbox, ids)
+    # a live re-insert replaces its id's hot entry; the slot it gives up
+    # is freed (through the owner check: a slot another id holds stays)
+    left, displaced = forest_replace_dispatched(
+        state.main_forest, mh_g, mid_g, mval_g, main_tree_config(cfg))
+    forest_insert_dispatched(state.main_forest, mh_g, left, mval_g,
+                             main_tree_config(cfg))
+    state = state._replace(store=free_displaced(state.store, displaced,
+                                                mid_g))
 
     # --- LSHTables insert ---------------------------------------------
     h, gtrees = compute_keys(state, vecs, cfg)                   # (N, L)
@@ -243,6 +251,14 @@ def insert_step(state: PFOState, ids: torch.Tensor, vecs: torch.Tensor,
                          flags_lsh_capacity or lsh_capacity,
                          main_pending.any() | lsh_pending.any())
     return state, slots, main_pending, lsh_pending, flags
+
+
+def free_displaced(store: DenseStore, displaced: torch.Tensor,
+                   mail_ids: torch.Tensor) -> DenseStore:
+    """Free the store slots a MainTable insert displaced: (T, K) slots
+    (-1 where none) and the ids of their mailbox slots."""
+    flat = displaced.reshape(-1)
+    return dense_free(store, flat, flat >= 0, mail_ids.reshape(-1))
 
 
 def seal_step(state: PFOState, cfg: PFOConfig) -> PFOState:

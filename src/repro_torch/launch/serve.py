@@ -5,7 +5,8 @@
 
 Runs on the card unless ``--device`` names another device.  Weights are
 random (a ``torch.Generator`` seeded 0), as in the JAX package's entry
-point.
+point; an encoder-decoder config (``--arch whisper_medium``) gets random
+frame embeddings for its stub audio frontend.
 """
 from __future__ import annotations
 
@@ -56,6 +57,10 @@ def main(argv=None):
         batch = {"tokens": rng.integers(
             0, cfg.vocab_size, (args.requests, args.prompt_len)
         ).astype(np.int32)}
+        if cfg.frontend == "audio":    # the stub frontend's frame embeddings
+            batch["features"] = rng.normal(
+                size=(args.requests, cfg.enc_len, cfg.d_model)
+            ).astype(np.float32)
         out, stats = eng.generate(batch, max_new=args.max_new,
                                   insert_online=pfo is not None)
         print(f"round {round_i}: generated {out.shape} stats={stats}")

@@ -1,6 +1,6 @@
-"""The port's model zoo: the dense GQA decoders of the JAX package's
-``models/`` as PyTorch modules and plain functions on tensors (MoE, MLA,
-RWKV-6, RG-LRU and the encoder-decoder wait: ``ROADMAP.md`` Queue 1)."""
+"""The port's model zoo: the JAX package's ``models/`` (GQA, MLA, RWKV-6
+and RG-LRU blocks, dense and MoE feed-forwards, the whisper
+encoder-decoder) as PyTorch modules and plain functions on tensors."""
 from .common import BlockDef, ModelConfig
 from .registry import Model, build_model
 from .transformer import Transformer

@@ -1,18 +1,24 @@
-"""Attention: GQA (opt. bias) with its local/chunked variants.
+"""Attention: GQA (opt. bias) with its local/chunked variants, its
+cross-attention (whisper's decoder), and MLA (deepseek-v2).
 
-The port's copy of the JAX package's ``models/attention.py`` (MLA waits:
-``ROADMAP.md`` Queue 1).  Full-sequence attention is computed
-*blockwise*: an online softmax over KV chunks, as einsums in float32,
-in the reference's order and with its masked score ``NEG_INF = -1e30``
-(not ``-inf``), so a fully masked chunk gives p = 1 on every lane until
-a later chunk's max rescales it away.  No fused attention operator is
-used: it would change both the arithmetic and the masking.
+The port's copy of the JAX package's ``models/attention.py``.
+Full-sequence attention is computed *blockwise*: an online softmax over
+KV chunks, as einsums in float32, in the reference's order and with its
+masked score ``NEG_INF = -1e30`` (not ``-inf``), so a fully masked chunk
+gives p = 1 on every lane until a later chunk's max rescales it away.
+No fused attention operator is used: it would change both the
+arithmetic and the masking.  MLA rides the same path as latent-space
+MQA in the weight-absorbed form: q_eff = [q_nope·W_kb, q_rope], k_eff =
+[c_kv, k_rope], v = c_kv (so Dv = kv_lora differs from Dk = kv_lora +
+qk_rope), and the up-projection W_vb applies after the attention.
 
-Cache: ``KVCache(k, v, length)`` with k, v (B, S, KV, head_dim) and
-``length`` a host int (the filled prefix).  A step writes its keys and
-values into the cache's tensors in place at ``length`` and returns the
-cache with the new length; past ``S`` it raises (the reference's
-``dynamic_update_slice`` would clamp the start and overwrite the tail).
+Caches: ``KVCache(k, v, length)`` with k, v (B, S, KV, head_dim);
+``MLACache(c_kv, k_rope, length)`` with c_kv (B, S, kv_lora) and k_rope
+(B, S, qk_rope).  ``length`` is a host int (the filled prefix).  A step
+writes its entries into the cache's tensors in place at ``length`` and
+returns the cache with the new length; past ``S`` it raises (the
+reference's ``dynamic_update_slice`` would clamp the start and overwrite
+the tail).
 """
 from __future__ import annotations
 
@@ -22,7 +28,7 @@ from typing import NamedTuple
 import torch
 
 from .common import BlockDef, ModelConfig, ParamSpec, apply_rope, dense, \
-    rope_freqs
+    rmsnorm, rope_freqs
 
 NEG_INF = -1e30
 
@@ -42,6 +48,32 @@ def gqa_param_specs(cfg: ModelConfig) -> dict:
         sp["bq"] = ParamSpec((cfg.q_features,), ("q_features",), "zeros")
         sp["bk"] = ParamSpec((cfg.kv_features,), ("kv_features",), "zeros")
         sp["bv"] = ParamSpec((cfg.kv_features,), ("kv_features",), "zeros")
+    return sp
+
+
+def mla_param_specs(cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    qk = cfg.qk_nope_dim + cfg.qk_rope_dim
+    sp = {
+        "wkv_a": ParamSpec((d, cfg.kv_lora_rank + cfg.qk_rope_dim),
+                           ("embed", "kv_lora")),
+        "kv_norm": ParamSpec((cfg.kv_lora_rank,), ("kv_lora",), "ones"),
+        "wk_b": ParamSpec((cfg.kv_lora_rank,
+                           cfg.n_heads * cfg.qk_nope_dim),
+                          ("kv_lora", "q_features")),
+        "wv_b": ParamSpec((cfg.kv_lora_rank,
+                           cfg.n_heads * cfg.v_head_dim),
+                          ("kv_lora", "q_features")),
+        "wo": ParamSpec((cfg.n_heads * cfg.v_head_dim, d),
+                        ("q_features", "embed")),
+    }
+    if cfg.q_lora_rank:
+        sp["wq_a"] = ParamSpec((d, cfg.q_lora_rank), ("embed", "kv_lora"))
+        sp["q_norm"] = ParamSpec((cfg.q_lora_rank,), ("kv_lora",), "ones")
+        sp["wq_b"] = ParamSpec((cfg.q_lora_rank, cfg.n_heads * qk),
+                               ("kv_lora", "q_features"))
+    else:
+        sp["wq"] = ParamSpec((d, cfg.n_heads * qk), ("embed", "q_features"))
     return sp
 
 
@@ -169,29 +201,41 @@ def _impl_kwargs(blk: BlockDef) -> dict:
     return {}
 
 
+def _write(buf: torch.Tensor, start: int, new: torch.Tensor) -> None:
+    """``buf[:, start:start + T] = new`` (cast), raising past its end."""
+    t, max_len = new.shape[1], buf.shape[1]
+    if start + t > max_len:
+        raise ValueError(f"KV cache full: {start} + {t} positions past "
+                         f"max_len {max_len}")
+    buf[:, start:start + t] = new.to(buf.dtype)
+
+
 def gqa_apply(p, cfg: ModelConfig, blk: BlockDef, x: torch.Tensor,
-              positions: torch.Tensor, cache: KVCache | None = None):
-    """Causal self-attention of x (B,T,D).  Returns (out, new_cache)."""
+              positions: torch.Tensor, cache: KVCache | None = None,
+              cross_kv=None, causal: bool = True):
+    """Self-attention of x (B,T,D), or with ``cross_kv = (k, v)``
+    cross-attention to them (no rope on the query, no mask, no cache).
+    ``causal=False`` is the encoder's.  Returns (out, new_cache)."""
     b, t, _ = x.shape
     q = dense(x, p["wq"], p.get("bq")).reshape(b, t, cfg.n_heads,
                                                cfg.head_dim)
-    k = dense(x, p["wk"], p.get("bk")).reshape(b, t, cfg.n_kv_heads,
-                                               cfg.head_dim)
-    v = dense(x, p["wv"], p.get("bv")).reshape(b, t, cfg.n_kv_heads,
-                                               cfg.head_dim)
-    if blk.rope == "rope":
-        cos, sin = rope_freqs(cfg.head_dim, cfg.rope_theta, positions)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
+    if cross_kv is None:
+        k = dense(x, p["wk"], p.get("bk")).reshape(b, t, cfg.n_kv_heads,
+                                                   cfg.head_dim)
+        v = dense(x, p["wv"], p.get("bv")).reshape(b, t, cfg.n_kv_heads,
+                                                   cfg.head_dim)
+        if blk.rope == "rope":
+            cos, sin = rope_freqs(cfg.head_dim, cfg.rope_theta, positions)
+            q = apply_rope(q, cos, sin)
+            k = apply_rope(k, cos, sin)
+    else:
+        k, v = cross_kv
 
     new_cache = None
-    if cache is not None:
+    if cache is not None and cross_kv is None:
         start, max_len = cache.length, cache.k.shape[1]
-        if start + t > max_len:
-            raise ValueError(f"KV cache full: {start} + {t} positions past "
-                             f"max_len {max_len}")
-        cache.k[:, start:start + t] = k.to(cache.k.dtype)
-        cache.v[:, start:start + t] = v.to(cache.v.dtype)
+        _write(cache.k, start, k)
+        _write(cache.v, start, v)
         new_cache = KVCache(cache.k, cache.v, start + t)
         if t == 1:
             o = dense_decode_attention(
@@ -204,7 +248,7 @@ def gqa_apply(p, cfg: ModelConfig, blk: BlockDef, x: torch.Tensor,
                 **_impl_kwargs(blk))
     else:
         o = blockwise_attention(
-            q, k, v, causal=True, q_offset=0,
+            q, k, v, causal=cross_kv is None and causal, q_offset=0,
             kv_chunk=min(1024, max(k.shape[1], 1)), **_impl_kwargs(blk))
     out = dense(o.reshape(b, t, cfg.q_features), p["wo"])
     return out, new_cache
@@ -216,3 +260,78 @@ def gqa_init_cache(cfg: ModelConfig, blk: BlockDef, batch: int,
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device),
                    length=0)
+
+
+# ----------------------------------------------------------------------
+# MLA block (deepseek-v2): latent-space MQA through the same flash path
+# ----------------------------------------------------------------------
+class MLACache(NamedTuple):
+    c_kv: torch.Tensor     # (B, S, kv_lora)
+    k_rope: torch.Tensor   # (B, S, qk_rope)
+    length: int            # filled prefix (host int)
+
+
+def mla_apply(p, cfg: ModelConfig, blk: BlockDef, x: torch.Tensor,
+              positions: torch.Tensor, cache: MLACache | None = None):
+    """Causal MLA of x (B,T,D) in the weight-absorbed form.  Returns
+    (out, new_cache)."""
+    b, t, _ = x.shape
+    qk = cfg.qk_nope_dim + cfg.qk_rope_dim
+    if cfg.q_lora_rank:
+        cq = rmsnorm(dense(x, p["wq_a"]), p["q_norm"], cfg.norm_eps)
+        q = dense(cq, p["wq_b"]).reshape(b, t, cfg.n_heads, qk)
+    else:
+        q = dense(x, p["wq"]).reshape(b, t, cfg.n_heads, qk)
+    q_nope, q_rope = q[..., :cfg.qk_nope_dim], q[..., cfg.qk_nope_dim:]
+    cos, sin = rope_freqs(cfg.qk_rope_dim, cfg.rope_theta, positions)
+    q_rope = apply_rope(q_rope, cos, sin)
+
+    ckv = dense(x, p["wkv_a"])
+    c_kv = rmsnorm(ckv[..., :cfg.kv_lora_rank], p["kv_norm"], cfg.norm_eps)
+    k_rope = apply_rope(ckv[..., cfg.kv_lora_rank:][..., None, :], cos,
+                        sin)[..., 0, :]
+
+    if cache is not None:
+        start = cache.length
+        _write(cache.c_kv, start, c_kv)
+        _write(cache.k_rope, start, k_rope)
+        new_cache = MLACache(cache.c_kv, cache.k_rope, start + t)
+        c_all, r_all = cache.c_kv, cache.k_rope
+        kv_valid, q_off = start + t, start
+    else:
+        new_cache = None
+        c_all, r_all = c_kv, k_rope
+        kv_valid, q_off = None, 0
+
+    # absorbed: q_eff = [q_nope W_kb, q_rope]; k_eff = [c_kv, k_rope]
+    wkb = p["wk_b"].reshape(cfg.kv_lora_rank, cfg.n_heads, cfg.qk_nope_dim)
+    q_abs = torch.einsum("bthd,rhd->bthr", q_nope.float(),
+                         wkb.float()).to(x.dtype)
+    q_eff = torch.cat([q_abs, q_rope], dim=-1)            # (B,T,H,r+rope)
+    k_eff = torch.cat([c_all, r_all], dim=-1)[:, :, None, :]
+    v_eff = c_all[:, :, None, :]                          # (B,S,1,r)
+
+    if t == 1 and cache is not None:
+        lat = dense_decode_attention(
+            q_eff, k_eff, v_eff, q_pos=q_off, kv_len_valid=kv_valid,
+            scale=1.0 / (qk ** 0.5))                      # (B,1,H,r)
+    else:
+        lat = blockwise_attention(
+            q_eff, k_eff, v_eff, causal=True, q_offset=q_off,
+            kv_chunk=min(1024, k_eff.shape[1]), kv_len_valid=kv_valid,
+            scale=1.0 / (qk ** 0.5))                      # (B,T,H,r)
+
+    wvb = p["wv_b"].reshape(cfg.kv_lora_rank, cfg.n_heads, cfg.v_head_dim)
+    o = torch.einsum("bthr,rhd->bthd", lat.float(), wvb.float()).to(x.dtype)
+    out = dense(o.reshape(b, t, cfg.n_heads * cfg.v_head_dim), p["wo"])
+    return out, new_cache
+
+
+def mla_init_cache(cfg: ModelConfig, batch: int, max_len: int,
+                   dtype: torch.dtype, device) -> MLACache:
+    return MLACache(
+        c_kv=torch.zeros((batch, max_len, cfg.kv_lora_rank), dtype=dtype,
+                         device=device),
+        k_rope=torch.zeros((batch, max_len, cfg.qk_rope_dim), dtype=dtype,
+                           device=device),
+        length=0)

@@ -10,11 +10,16 @@ a layer.
 
 Numerics follow the reference step by step (dtypes included): norms and
 rope compute in float32 and cast back, ``gelu`` is the tanh form
-(``jax.nn.gelu``'s default).
+(``jax.nn.gelu``'s default).  In a 16-bit float on the CPU, ``sigmoid``,
+``silu`` and ``gelu`` spell out the op sequence XLA lowers ``jax.nn``'s
+to, each op rounded to the dtype, and so give the reference's bits (the
+tests hold them so); in float32, and on the card, they are PyTorch's
+fused ops, one kernel each, rounded once.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 import torch.nn.functional as F
@@ -153,8 +158,56 @@ def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * w + b
 
 
+class _Sigmoid16(torch.autograd.Function):
+    """``jax.nn.sigmoid`` in a 16-bit float: XLA lowers it to
+    1 / (1 + exp(-x)), each op rounded to the dtype; the gradient is
+    the analytic s (1 - s), as the reference's (no inf * 0 where
+    exp(-x) overflows)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return 1 / (1 + torch.exp(-x))
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        s = torch.sigmoid(x.float())
+        return (g.float() * s * (1 - s)).to(x.dtype)
+
+
+def _jax_bits(x: torch.Tensor) -> bool:
+    """Spell out ``jax.nn``'s 16-bit op sequence: a bfloat16 / float16
+    tensor on the CPU.  On the card the fused kernel stands (bit parity
+    with the reference buys nothing there, and the sequence costs 3-8
+    launches a call on host-bound paths)."""
+    return x.dtype in (torch.bfloat16, torch.float16) and not x.is_cuda
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid``: in bfloat16 / float16 on the CPU its bits (see
+    :class:`_Sigmoid16`), else ``torch.sigmoid``."""
+    return _Sigmoid16.apply(x) if _jax_bits(x) else torch.sigmoid(x)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``, x * sigmoid(x): in a 16-bit float on the CPU its
+    bits."""
+    return x * sigmoid(x) if _jax_bits(x) else F.silu(x)
+
+
+_GELU_C = (2 / math.pi) ** 0.5
+
+
 def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
-    return F.gelu(x, approximate="tanh")
+    """``jax.nn.gelu`` (the tanh form): in a 16-bit float on the CPU its
+    bits, op by op as XLA rounds them, with the constants rounded to the
+    dtype."""
+    if not _jax_bits(x):
+        return F.gelu(x, approximate="tanh")
+    c1 = torch.tensor(0.044715, dtype=x.dtype, device=x.device)
+    c2 = torch.tensor(_GELU_C, dtype=x.dtype, device=x.device)
+    return x * (0.5 * (1 + torch.tanh(c2 * (x + c1 * ((x * x) * x)))))
 
 
 def _relu2(x: torch.Tensor) -> torch.Tensor:
@@ -163,7 +216,7 @@ def _relu2(x: torch.Tensor) -> torch.Tensor:
 
 def activation(name: str):
     if name == "silu":
-        return F.silu
+        return silu
     if name == "gelu":
         return _gelu_tanh
     if name == "relu2":

@@ -1,8 +1,8 @@
 """Model registry: config -> Model bundle (init / forward / loss / serve
 fns).
 
-``build_model(cfg)`` wires the assembly for a GQA ModelConfig (dense or
-MoE feed-forward blocks);
+``build_model(cfg)`` wires the assembly for any ModelConfig (GQA, MLA,
+RWKV-6 or RG-LRU blocks, dense or MoE feed-forward, an encoder);
 ``get(name)`` resolves an architecture from ``repro_torch.configs``.
 The model state is a :class:`~.transformer.Transformer` on a device;
 CUDA unless the caller names another.

@@ -1,20 +1,26 @@
 """Model assembly: block groups -> per-layer modules -> LM.
 
-The port's copy of the JAX package's ``models/transformer.py`` for GQA
-decoders with dense or routed-expert (MoE) feed-forward blocks: embed ->
+The port's copy of the JAX package's ``models/transformer.py``: embed ->
 [block groups] -> final norm -> (tied or separate) LM head, and the
-sequence-chunked next-token loss :func:`lm_loss`.  The reference stacks
-each group's params over a ``layers`` axis and scans them; here
-:class:`Transformer` holds one module a layer (an ``nn.ModuleList`` a
-group) and :func:`run_groups` is a Python loop over the layers.  With
-``remat`` each layer's body (the reference's scan body) and each loss
-chunk run under ``torch.utils.checkpoint``, so their activations are
-recomputed in the backward pass instead of kept.  The patch frontend is
-the reference's stub (precomputed patch embeddings arrive as inputs).
+sequence-chunked next-token loss :func:`lm_loss`.  A block is GQA
+attention (full, local or chunked; with cross-attention in whisper's
+decoder), MLA, RWKV-6 (time mix, then channel mix) or RG-LRU, followed
+by a dense or routed-expert (MoE) feed-forward (RWKV's channel mix is
+its own).  Enc-dec (whisper) runs an encoder stack over the frame
+embeddings first and threads ``enc_out`` into the decoder's
+cross-attention; a prefill stores the cross keys and values in the
+cache, where decode steps read them.  The reference stacks each group's
+params over a ``layers`` axis and scans them; here :class:`Transformer`
+holds one module a layer (an ``nn.ModuleList`` a group) and
+:func:`run_groups` is a Python loop over the layers.  With ``remat``
+each layer's body (the reference's scan body) and each loss chunk run
+under ``torch.utils.checkpoint``, so their activations are recomputed
+in the backward pass instead of kept.  The patch and audio frontends
+are the reference's stubs (precomputed patch or frame embeddings arrive
+as inputs).
 
-Not ported yet (``ROADMAP.md`` Queue 1): MLA, RWKV-6, RG-LRU, the
-encoder and cross-attention, and MoE's ``shard_map`` dispatch.  Building
-a model that needs one raises ``NotImplementedError``.
+Not ported yet (``ROADMAP.md`` Queue 1 item 7): MoE's ``shard_map``
+dispatch; a config that asks for it raises ``NotImplementedError``.
 
 The functional API takes ``params`` as a :class:`Transformer` or as the
 nested dict :func:`param_dict` makes of one (any tensors: a trainer
@@ -29,20 +35,25 @@ from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn_mod
 from . import moe as moe_mod
+from . import rglru as rglru_mod
+from . import rwkv6 as rwkv_mod
 from .common import BlockDef, ModelConfig, ParamSpec, activation, dense, \
     layernorm, map_specs, rmsnorm
 
-_QUEUE = "not ported yet (ROADMAP.md Queue 1)"
+GROUP_KEYS = ("groups", "enc_groups")       # the stacked layer lists
 
 
 def _check_supported(blk: BlockDef, cfg: ModelConfig) -> None:
-    if blk.kind != "attn":
-        raise NotImplementedError(f"{blk.kind} blocks are {_QUEUE}")
+    if blk.kind not in ("attn", "mla", "rwkv", "rglru"):
+        raise ValueError(blk.kind)
     if blk.moe and cfg.moe_impl == "shardmap":
         raise NotImplementedError("MoE's shard_map dispatch is not ported "
                                   "yet (ROADMAP.md Queue 1 item 7)")
-    if blk.cross_attn:
-        raise NotImplementedError(f"cross-attention blocks are {_QUEUE}")
+
+
+def _all_blocks(cfg: ModelConfig):
+    for pat, _ in cfg.groups + cfg.enc_groups:
+        yield from pat
 
 
 # ======================================================================
@@ -84,9 +95,21 @@ def block_param_specs(cfg: ModelConfig, blk: BlockDef) -> dict:
     _check_supported(blk, cfg)
     sp: dict = {}
     sp.update(_norm_specs(cfg, "ln1"))
-    sp["attn"] = attn_mod.gqa_param_specs(cfg)
+    if blk.kind == "attn":
+        sp["attn"] = attn_mod.gqa_param_specs(cfg)
+    elif blk.kind == "mla":
+        sp["attn"] = attn_mod.mla_param_specs(cfg)
+    elif blk.kind == "rwkv":
+        sp["rwkv"] = rwkv_mod.rwkv_param_specs(cfg)
+    else:
+        sp["rglru"] = rglru_mod.rglru_param_specs(cfg)
+    if blk.cross_attn:
+        sp.update(_norm_specs(cfg, "lnx"))
+        sp["cross"] = attn_mod.cross_param_specs(cfg)
     sp.update(_norm_specs(cfg, "ln2"))
-    if blk.moe:
+    if blk.kind == "rwkv":
+        pass  # the channel mix lives in the rwkv specs
+    elif blk.moe:
         sp["moe"] = moe_mod.moe_param_specs(cfg)
     else:
         sp["mlp"] = mlp_param_specs(cfg)
@@ -106,8 +129,6 @@ def group_param_specs(cfg: ModelConfig, pattern: tuple,
 
 
 def model_param_specs(cfg: ModelConfig) -> dict:
-    if cfg.enc_groups:
-        raise NotImplementedError(f"the encoder stack is {_QUEUE}")
     d = cfg.d_model
     sp: dict = {
         "embed": ParamSpec((cfg.vocab_size, d), ("vocab", "embed"),
@@ -118,6 +139,13 @@ def model_param_specs(cfg: ModelConfig) -> dict:
     sp.update(_norm_specs(cfg, "final"))
     if not cfg.tie_embeddings:
         sp["lm_head"] = ParamSpec((d, cfg.vocab_size), ("embed", "vocab"))
+    if cfg.enc_groups:
+        sp["enc_groups"] = [group_param_specs(cfg, pat, rep)
+                            for pat, rep in cfg.enc_groups]
+        sp.update({f"enc_{k}": v
+                   for k, v in _norm_specs(cfg, "final").items()})
+        sp["enc_pos"] = ParamSpec((cfg.enc_len, d), ("seq", "embed"),
+                                  "normal", 0.02)
     if cfg.frontend == "patch":
         sp["patch_pos"] = ParamSpec((cfg.frontend_len, d),
                                     ("seq", "embed"), "normal", 0.02)
@@ -169,21 +197,25 @@ def _stack(trees: list):
 
 
 class Transformer(ParamTree):
-    """A dense GQA decoder's params: the reference's tree with each
-    group's ``layers`` axis unstacked into an ``nn.ModuleList`` of one
+    """A model's params: the reference's tree with each group's
+    ``layers`` axis unstacked into an ``nn.ModuleList`` of one
     :class:`ParamTree` a layer (``{"b0": ..., "b1": ...}``, one entry a
-    block of the group's pattern).  ``model(batch)`` is :func:`forward`."""
+    block of the group's pattern); an encoder's groups alike
+    (``enc_groups``).  ``model(batch)`` is :func:`forward`."""
 
     def __init__(self, cfg: ModelConfig, tree: dict):
-        for pat, _ in cfg.groups:
-            for blk in pat:
-                _check_supported(blk, cfg)
-        top = {k: v for k, v in tree.items() if k != "groups"}
+        for blk in _all_blocks(cfg):
+            _check_supported(blk, cfg)
+        top = {k: v for k, v in tree.items() if k not in GROUP_KEYS}
         super().__init__(top)
         self.cfg = cfg
-        self.groups = nn.ModuleList(
-            nn.ModuleList(ParamTree(_unstack(g, i)) for i in range(rep))
-            for g, (_, rep) in zip(tree["groups"], cfg.groups))
+        for key, groups in (("groups", cfg.groups),
+                            ("enc_groups", cfg.enc_groups)):
+            if groups:
+                self.add_module(key, nn.ModuleList(
+                    nn.ModuleList(ParamTree(_unstack(g, i))
+                                  for i in range(rep))
+                    for g, (_, rep) in zip(tree[key], groups)))
 
     def tree(self) -> dict:
         """The reference's layout: each group's layers stacked again."""
@@ -202,20 +234,25 @@ def param_dict(params) -> dict:
     if not isinstance(params, Transformer):
         return params
     tree = {n: p for n, p in params._parameters.items()}
-    tree["groups"] = [[layer.tree() for layer in g] for g in params.groups]
+    for key in GROUP_KEYS:
+        if key in params._modules:
+            tree[key] = [[layer.tree() for layer in g]
+                         for g in params._modules[key]]
     return tree
 
 
 def stack_layers(tree: dict) -> dict:
     """:func:`param_dict`'s layout -> the reference's (each group's
     layers stacked on a leading axis)."""
-    return dict(tree, groups=[_stack(g) for g in tree["groups"]])
+    return dict(tree, **{k: [_stack(g) for g in tree[k]]
+                         for k in GROUP_KEYS if k in tree})
 
 
 def unstack_layers(tree: dict) -> dict:
     """:func:`stack_layers`' inverse (views of the stacked tensors)."""
-    return dict(tree, groups=[
-        [_unstack(g, i) for i in range(_layers(g))] for g in tree["groups"]])
+    return dict(tree, **{k: [[_unstack(g, i) for i in range(_layers(g))]
+                             for g in tree[k]]
+                         for k in GROUP_KEYS if k in tree})
 
 
 def _layers(tree) -> int:
@@ -227,17 +264,39 @@ def _layers(tree) -> int:
 # ======================================================================
 # caches
 # ======================================================================
+def block_init_cache(cfg: ModelConfig, blk: BlockDef, batch: int,
+                     max_len: int, dtype: torch.dtype, device) -> dict:
+    """One block's cache: ``kv`` (GQA, MLA) or ``state`` (RWKV, RG-LRU),
+    and ``cross_k`` / ``cross_v`` (B, enc_len, KV, head_dim) for a
+    cross-attention block."""
+    c: dict = {}
+    if blk.kind == "attn":
+        c["kv"] = attn_mod.gqa_init_cache(cfg, blk, batch, max_len, dtype,
+                                          device)
+    elif blk.kind == "mla":
+        c["kv"] = attn_mod.mla_init_cache(cfg, batch, max_len, dtype, device)
+    elif blk.kind == "rwkv":
+        c["state"] = rwkv_mod.rwkv_init_state(cfg, batch, dtype, device)
+    else:
+        c["state"] = rglru_mod.rglru_init_state(cfg, batch, dtype, device)
+    if blk.cross_attn:
+        shape = (batch, cfg.enc_len, cfg.n_kv_heads, cfg.head_dim)
+        c["cross_k"] = torch.zeros(shape, dtype=dtype, device=device)
+        c["cross_v"] = torch.zeros(shape, dtype=dtype, device=device)
+    return c
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype: torch.dtype, device):
-    """Caches mirroring the layer structure: a list per group of one
-    ``{"b<i>": {"kv": KVCache}}`` a layer."""
+    """Caches mirroring the decoder's layer structure: a list per group
+    of one ``{"b<i>": block_init_cache(...)}`` a layer."""
     out = []
     for pat, rep in cfg.groups:
         for blk in pat:
             _check_supported(blk, cfg)
-        out.append([{f"b{i}": {"kv": attn_mod.gqa_init_cache(
-            cfg, blk, batch, max_len, dtype, device)}
-            for i, blk in enumerate(pat)} for _ in range(rep)])
+        out.append([{f"b{i}": block_init_cache(cfg, blk, batch, max_len,
+                                                dtype, device)
+                     for i, blk in enumerate(pat)} for _ in range(rep)])
     return out
 
 
@@ -245,16 +304,61 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 # forward
 # ======================================================================
 def apply_block(blk: BlockDef, bp, cfg: ModelConfig, x: torch.Tensor,
-                positions, bcache):
+                positions, bcache, enc_out=None, causal: bool = True):
+    """One block.  ``bcache`` None runs without a cache; ``enc_out``
+    (B, enc_len, D) feeds a cross-attention block, which otherwise reads
+    the cross keys and values a prefill stored in ``bcache``.  Returns
+    (x, new_cache)."""
     _check_supported(blk, cfg)
     new_cache = dict(bcache) if bcache is not None else None
     h = _apply_norm(cfg, bp, "ln1", x)
-    o, kv = attn_mod.gqa_apply(
-        bp["attn"], cfg, blk, h, positions,
-        cache=bcache["kv"] if bcache is not None else None)
-    if new_cache is not None and kv is not None:
-        new_cache["kv"] = kv
-    x = x + o
+    if blk.kind in ("attn", "mla"):
+        apply = attn_mod.gqa_apply if blk.kind == "attn" else \
+            attn_mod.mla_apply
+        kw = {"causal": causal} if blk.kind == "attn" else {}
+        o, kv = apply(bp["attn"], cfg, blk, h, positions,
+                      cache=bcache["kv"] if bcache is not None else None,
+                      **kw)
+        if new_cache is not None and kv is not None:
+            new_cache["kv"] = kv
+        x = x + o
+    elif blk.kind == "rwkv":
+        st = bcache["state"] if bcache is not None else \
+            rwkv_mod.rwkv_init_state(cfg, x.shape[0], x.dtype, x.device)
+        o, st = rwkv_mod.time_mix(bp["rwkv"], cfg, h, st)
+        x = x + o
+        h2 = _apply_norm(cfg, bp, "ln2", x)
+        o2, st = rwkv_mod.channel_mix(bp["rwkv"], cfg, h2, st)
+        x = x + o2
+        if new_cache is not None:
+            new_cache["state"] = st
+        return x, new_cache
+    else:
+        st = bcache["state"] if bcache is not None else \
+            rglru_mod.rglru_init_state(cfg, x.shape[0], x.dtype, x.device)
+        o, st = rglru_mod.rglru_apply(bp["rglru"], cfg, h, st)
+        x = x + o
+        if new_cache is not None:
+            new_cache["state"] = st
+
+    if blk.cross_attn:
+        hx = _apply_norm(cfg, bp, "lnx", x)
+        if enc_out is not None:                       # train / prefill
+            shape = (*enc_out.shape[:2], cfg.n_kv_heads, cfg.head_dim)
+            ck = dense(enc_out, bp["cross"]["wk"]).reshape(shape)
+            cv = dense(enc_out, bp["cross"]["wv"]).reshape(shape)
+            if new_cache is not None:
+                new_cache["cross_k"] = ck.to(new_cache["cross_k"].dtype)
+                new_cache["cross_v"] = cv.to(new_cache["cross_v"].dtype)
+        elif bcache is not None:                      # decode
+            ck, cv = bcache["cross_k"], bcache["cross_v"]
+        else:
+            raise ValueError("a cross-attention block needs the encoder's "
+                             "output: pass batch['features']")
+        o, _ = attn_mod.gqa_apply(bp["cross"], cfg, blk, hx, positions,
+                                  cross_kv=(ck, cv))
+        x = x + o
+
     h2 = _apply_norm(cfg, bp, "ln2", x)
     if blk.moe:
         x = x + moe_mod.moe_apply(bp["moe"], cfg, h2)
@@ -263,16 +367,17 @@ def apply_block(blk: BlockDef, bp, cfg: ModelConfig, x: torch.Tensor,
     return x, new_cache
 
 
-def _layer(pat, lp, cfg: ModelConfig, x, positions):
+def _layer(pat, lp, cfg: ModelConfig, x, positions, enc_out, causal):
     """One layer (one repeat of the group's pattern) with no cache: the
     body that ``remat`` checkpoints."""
     for i, blk in enumerate(pat):
-        x, _ = apply_block(blk, lp[f"b{i}"], cfg, x, positions, None)
+        x, _ = apply_block(blk, lp[f"b{i}"], cfg, x, positions, None,
+                           enc_out, causal)
     return x
 
 
 def run_groups(groups_cfg, gparams_list, x, caches, *, cfg, positions,
-               remat: bool = False):
+               enc_out=None, causal: bool = True, remat: bool = False):
     """Every layer of every group in order (a Python loop, no scan).
     ``gparams_list[g][layer]`` and ``caches[g][layer]`` hold one layer's
     ``{"b<i>": ...}``.  ``remat`` (no caches) recomputes each layer's
@@ -283,10 +388,10 @@ def run_groups(groups_cfg, gparams_list, x, caches, *, cfg, positions,
             for lp in layers:
                 if remat:
                     x = checkpoint(_layer, pat, lp, cfg, x, positions,
-                                   use_reentrant=False,
+                                   enc_out, causal, use_reentrant=False,
                                    preserve_rng_state=False)
                 else:
-                    x = _layer(pat, lp, cfg, x, positions)
+                    x = _layer(pat, lp, cfg, x, positions, enc_out, causal)
         return x, None
     new_caches = []
     for gi, (pat, rep) in enumerate(groups_cfg):
@@ -296,7 +401,8 @@ def run_groups(groups_cfg, gparams_list, x, caches, *, cfg, positions,
             lc_new = {}
             for i, blk in enumerate(pat):
                 x, lc_new[f"b{i}"] = apply_block(
-                    blk, lp[f"b{i}"], cfg, x, positions, lc[f"b{i}"])
+                    blk, lp[f"b{i}"], cfg, x, positions, lc[f"b{i}"],
+                    enc_out, causal)
             out.append(lc_new)
         new_caches.append(out)
     return x, new_caches
@@ -310,6 +416,21 @@ def embed_inputs(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
               + params["patch_pos"][None].to(cfg.dtype))
         x = torch.cat([pe, x], dim=1)
     return x
+
+
+def encode(params: dict, cfg: ModelConfig, batch: dict,
+           remat: bool = False) -> torch.Tensor:
+    """The whisper encoder over stub frame embeddings
+    ``batch["features"]`` (B, enc_len, D), non-causal, on params already
+    cast to ``cfg.dtype``."""
+    x = batch["features"].to(cfg.dtype) + params["enc_pos"][None].to(
+        cfg.dtype)
+    positions = torch.arange(x.shape[1], device=x.device)
+    x, _ = run_groups(cfg.enc_groups, params["enc_groups"], x, None,
+                      cfg=cfg, positions=positions, causal=False,
+                      remat=remat)
+    return _apply_norm(cfg, {k[len("enc_"):]: v for k, v in params.items()
+                             if k.startswith("enc_final")}, "final", x)
 
 
 def _cast_params(params, dtype: torch.dtype):
@@ -339,11 +460,15 @@ def forward(params, cfg: ModelConfig, batch: dict, *, caches=None,
 def _forward(params: dict, cfg: ModelConfig, batch: dict, caches,
              positions, remat: bool = False):
     """:func:`forward` on params already cast to ``cfg.dtype``."""
+    enc_out = None
+    if cfg.enc_groups and "features" in batch:
+        enc_out = encode(params, cfg, batch, remat)
     x = embed_inputs(params, cfg, batch)
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
     x, new_caches = run_groups(cfg.groups, params["groups"], x, caches,
-                               cfg=cfg, positions=positions, remat=remat)
+                               cfg=cfg, positions=positions,
+                               enc_out=enc_out, remat=remat)
     x = _apply_norm(cfg, params, "final", x)
     return x, new_caches
 

@@ -13,9 +13,10 @@ distances within 1e-5, update acks equal (the reference child's
 contract, ``tests/_dist_stream_child.py``), and holds every distributed
 answer to a dict + linear-scan oracle (each id live, once, at its newest
 vector's distance).  ``stale_entries`` forces the case where the shards
-must agree on a fold's survivors; ``cold_compaction_epochs`` queries
-updated ids at their older vectors while one engine has compacted its
-cold chains and the other has not.  It also checks one readback a
+must agree on a fold's survivors; ``live_reinsert`` re-inserts 48 live
+ids and queries their older vectors (the port's one entry an id);
+``cold_compaction_epochs`` queries updated ids at their older vectors
+while one engine has compacted its cold chains and the other has not.  It also checks one readback a
 steady-state round on every rank, ids above 2^24 through the routing
 payloads against the oracle, and a 4-rank distributed checkpoint round
 trip (a load at another ``n_model`` raises).
@@ -252,6 +253,55 @@ def stale_entries(mesh, cold: bool) -> dict:
             "oracle_violations": bad}
 
 
+def live_reinsert(mesh, cold: bool) -> dict:
+    """Ids 0..47 inserted, then each re-inserted live once with a new
+    vector (with a cold tier, after fresh inserts have spilled the
+    ring); queries at every older vector before a forced seal, after it
+    and after a merge.  ``stale`` counts, per stage and engine, answers
+    that rank the id at its older vector's distance."""
+    deng, seng, vec = engines(mesh, cold)
+    deng.warmup()
+    snap, nxt = {}, 1000
+    while cold and min(deng.stats()["spills"], seng.stats()["spills"]) < 1:
+        for _ in range(16):
+            snap[nxt] = vec(nxt, 1)
+            deng.insert(nxt, snap[nxt]), seng.insert(nxt, snap[nxt])
+            nxt += 1
+        deng.flush(), seng.flush()
+        assert nxt < 4000, "no spill"
+    ids = list(range(48))
+    for v in (1, 2):
+        for i in ids:
+            deng.insert(i, vec(i, v)), seng.insert(i, vec(i, v))
+        deng.flush(), seng.flush()
+    snap.update({i: vec(i, 2) for i in ids})
+    out = {"queries": 0, "mismatches": 0, "oracle_violations": 0,
+           "stale": []}
+    for stage in ("before_seal", "after_seal", "after_merge"):
+        if stage == "after_seal":
+            deng.seal(), seng.seal()
+        elif stage == "after_merge":
+            deng.merge(), seng.merge()
+        pairs, probes = [], {}
+        for i in ids:
+            q = vec(i, 1)
+            pairs.append((deng.query(q, k=5), seng.query(q, k=5)))
+            probes[pairs[-1][0]] = (q, snap)
+        answers = (deng.flush(), seng.flush())
+        stale = [0, 0]
+        for i, tickets in zip(ids, pairs):
+            for e, t in enumerate(tickets):
+                got, d = answers[e][t]
+                # the query is the older vector: its distance is 0
+                stale[e] += int((np.abs(d[got == i]) <= 1e-5).any())
+        mism, bad = compare(pairs, deng, seng, probes)
+        out["queries"] += len(pairs)
+        out["mismatches"] += mism
+        out["oracle_violations"] += bad
+        out["stale"].append(stale)
+    return out
+
+
 def cold_compaction_epochs(mesh) -> dict:
     """Ids inserted and pushed into the cold chains by fresh inserts,
     then updated to a new vector (fewer than ``max_tombstones``, so no
@@ -427,6 +477,8 @@ def main():
         out["strict_1x4"] = run_trace(mesh, False, "strict", 12, 80)
         out["stale_entries"] = stale_entries(mesh, cold=False)
         out["stale_entries_cold"] = stale_entries(mesh, cold=True)
+        out["live_reinsert"] = live_reinsert(mesh, cold=False)
+        out["live_reinsert_cold"] = live_reinsert(mesh, cold=True)
         out["cold_compaction_epochs"] = cold_compaction_epochs(mesh)
         out["big_ids"] = big_ids(mesh)
         out["checkpoint"] = checkpoint(mesh, ckpt)

@@ -689,6 +689,12 @@ def test_stream_flush_after_warmup_builds_no_kernel(cold, monkeypatch):
 # ======================================================================
 # the LM serving path
 # ======================================================================
+#: the configs with the newer block kinds (MLA + MoE, RWKV-6, RG-LRU,
+#: the encoder-decoder), whose zero-init leaves the card tests draw
+FAMILIES = ["deepseek_v2_236b", "rwkv6_7b", "recurrentgemma_9b",
+            "whisper_medium"]
+
+
 def _lm(arch, reduced, dtype=None, device=None, seed=0):
     from repro_torch import configs
     from repro_torch.models import build_model
@@ -698,7 +704,31 @@ def _lm(arch, reduced, dtype=None, device=None, seed=0):
         cfg = dataclasses.replace(cfg, dtype=dtype)
     model = build_model(cfg)
     gen = torch.Generator(device=device or "cuda").manual_seed(seed)
-    return model, model.init(gen, device=device)
+    params = model.init(gen, device=device)
+    if arch in FAMILIES:
+        _chip_smoke().draw_zero_leaves(model, params, gen)
+    return model, params
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` at the repo root, as a module (it imports no JAX
+    and touches no card when imported)."""
+    import importlib
+    import sys
+    from pathlib import Path
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    return importlib.import_module("chip_smoke")
+
+
+def _features(cfg, b, dev, seed=5):
+    """Stub frame embeddings for an encoder-decoder config, else none."""
+    if cfg.frontend != "audio":
+        return {}
+    g = torch.Generator().manual_seed(seed)
+    return {"features": torch.randn((b, cfg.enc_len, cfg.d_model),
+                                    generator=g).to(dev)}
 
 
 @pytest.mark.cuda
@@ -746,6 +776,43 @@ def test_reduced_model_cpu_equals_card(arch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_model_cpu_equals_card(arch):
+    """The newer block kinds (reduced, f32, zero-init leaves drawn): the
+    same weights and tokens on the CPU and on the card (no TF32) give
+    forward, prefill and decode logits within 1e-4, and the caches and
+    recurrent states after the prefill within 1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    assert not torch.backends.cuda.matmul.allow_tf32
+    model, cpu = _lm(arch, reduced=True, dtype=torch.float32, device="cpu")
+    out, caches = {}, {}
+    for dev in ("cpu", "cuda"):
+        params = cpu if dev == "cpu" else cpu.to("cuda")
+        toks = torch.arange(24, dtype=torch.int32).reshape(2, 12) * 7 % 512
+        batch = {"tokens": toks.to(dev), **_features(model.cfg, 2, dev)}
+        hidden, _ = model.forward(params, batch)
+        cache = model.init_cache(2, 16, device=dev)
+        logits, cache, _ = model.prefill(params, batch, cache)
+        # copies: the decode step writes the KV caches in place
+        caches[dev] = [t.to("cpu", copy=True) for t in _cache_tensors(cache)]
+        dec, _ = model.decode_step(params, batch["tokens"][:, :1], cache, 12)
+        out[dev] = [t.cpu() for t in (hidden, logits, dec)]
+    for a, b in zip(out["cpu"] + caches["cpu"], out["cuda"] + caches["cuda"]):
+        torch.testing.assert_close(b, a, rtol=0, atol=1e-4)
+
+
+def _cache_tensors(tree):
+    if torch.is_tensor(tree):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _cache_tensors(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _cache_tensors(v)]
+    return []                                   # a cache's host length
+
+
+@pytest.mark.cuda
 def test_lm_and_datastore_default_to_the_card():
     """A model, its cache and a datastore built with no device land on
     CUDA, and one full-width generate with the kNN head runs there,
@@ -777,7 +844,8 @@ def test_lm_and_datastore_default_to_the_card():
 # training
 # ======================================================================
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["smollm_135m", "llama4_scout_17b_a16e"])
+@pytest.mark.parametrize("arch", ["smollm_135m", "llama4_scout_17b_a16e"]
+                         + FAMILIES)
 def test_train_steps_cpu_equal_card(arch):
     """Three f32 train steps (remat, AdamW with a master copy) of the
     same reduced model on the CPU and on the card (no TF32): losses and
@@ -814,6 +882,7 @@ def test_train_steps_cpu_equal_card(arch):
             for i in range(3):
                 batch = {k: torch.from_numpy(v).to(dev)
                          for k, v in data.batch(i).items()}
+                batch.update(_features(model.cfg, 4, dev, seed=i))
                 params, opt, m = step(params, opt, batch)
                 metrics.append([float(m["loss"]), float(m["grad_norm"])])
         finally:
@@ -824,7 +893,7 @@ def test_train_steps_cpu_equal_card(arch):
     np.testing.assert_allclose(m1, m0, rtol=1e-4, atol=0)
     for a, b in zip(p0, p1):
         assert float((b - a).norm() / a.norm()) <= 1e-4
-    assert len(r0) == len(r1) and (len(r0) > 0) == (arch != "smollm_135m")
+    assert len(r0) == len(r1) and (len(r0) > 0) == (model.cfg.n_experts > 0)
     for (e0, k0), (e1, k1) in zip(r0, r1):
         assert torch.equal(e0, e1) and torch.equal(k0, k1)
 

@@ -44,7 +44,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.configs, repro_torch.data, "
             "repro_torch.serving.engine, repro_torch.launch.serve, "
             "repro_torch.models.moe, repro_torch.optim, repro_torch.train, "
-            "repro_torch.launch.train\n"
+            "repro_torch.launch.train, repro_torch.models.rwkv6, "
+            "repro_torch.models.rglru\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(','.join(bad))")
