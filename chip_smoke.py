@@ -43,7 +43,7 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    hardlinked) and restored with the same answers;
 8. the distributed engine (``dist``) on a one-rank NCCL group: a
    ``DistStreamEngine`` and a ``StreamEngine`` on the card with the same
-   projections get the same trace (16,384 inserts, then 8,192 requests of
+   projections get the same trace (8,192 inserts, then 4,096 requests of
    the stream mix in windows of 256, one forced seal, one forced merge)
    and answer alike; requests/s of both, readbacks, implicit syncs and
    collectives a round; a distributed checkpoint round trip;
@@ -53,7 +53,7 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    datastore leaves); then smollm_135m at full width in bf16 (random
    weights from a seeded ``torch.Generator``) behind ``ServingEngine``
    with the PFO kNN-LM head on a ``StreamEngine``, over a datastore
-   filled with 8,192 memories (the model's hidden states over
+   filled with 4,096 memories (the model's hidden states over
    ``SyntheticLM`` text -> the next token), the counts set to 0 just
    before the fill and read after the recall oracle: three rounds of
    four requests, decode == forward, the greedy tokens with the head
@@ -105,18 +105,41 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    memory; its kNN head's ``lsh_hash`` and ``gather_rank`` at its
    d_model counted, held against their plain versions and timed (the
    kernel rows' ``families`` entries);
-12. the paper's comparators on the hot path's own items and queries
+12. the LM stack's sharding (``sharded``) on a one-rank NCCL DeviceMesh
+   ``(data, model)`` = (1, 1), where every rule of the policy resolves
+   to a replicated placement (the same code as a larger mesh): (a)
+   smollm_135m at published widths in f32 behind ``ServingEngine(policy=
+   make_policy(mesh, cfg, "serve"))`` with the kNN-LM head over 1,024 of
+   its own states, one round of 4 requests (prompt 16, 16 new) against
+   the unsharded engine on the same params: every step's logits within
+   1e-5 (relative in norm), the tokens equal, the head's ``lsh_hash``
+   and ``gather_rank`` counted (set to 0 just before the sharded round,
+   read after: ``launches_by_path["sharded"]``); then both engines in
+   bf16, decode-step ms p50 / p99 (DTensor's host cost); (b)
+   smollm_135m through ``Trainer(policy=)``, 3 steps against 3 unsharded
+   steps from the same state, every leaf within 1e-5, the sharded
+   checkpoint restored bit-equal into an unsharded ``Trainer``; (c)
+   llama4_scout_17b_a16e at published widths, 4 of 48 layers, f32, a
+   4 x 64 prefill through ``moe_impl="gspmd"`` whose every MoE block's
+   input is run again through ``moe_apply_shardmap`` (all_to_all over
+   the mesh's ``model`` group): rows whose pairs all survived within
+   1e-5, the dropped rows those the reference's ``cap2`` drops
+   (recounted by the plain CPU routing of the same block), and the whole
+   prefill with ``moe_impl="shardmap"``; (d) the dry-run's
+   ``llama4_scout_17b_a16e decode_32k`` cell at full width on the fake
+   16 x 16 world, in a subprocess on the host beside (a)-(c);
+13. the paper's comparators on the hot path's own items and queries
    (``baselines``): ``ZOrderIndex`` and ``MultiProbeFlat`` inserted and
    queried beside PFO's answer, each with recall@10 and Eq. 1's error
    ratio against ``BruteForce``; ``SerializedPFO`` against a dispatched
    ``PFOIndex`` on 500 vectors, its forest equal on the CPU and on the
    card; counts set to 0 just before each comparator and read just
    after;
-13. the cold path at glove-100 width: 800,000 inserts with churn into
+14. the cold path at glove-100 width: 800,000 inserts with churn into
    an index whose store holds a third of them, spilling to file-backed
    segments; queries of cold-only items and deletes of them, counts set
    to 0 just before and read just after;
-14. each kernel against its plain version on the card, at the shapes its
+15. each kernel against its plain version on the card, at the shapes its
    path gave it, with its time, the plain version's time, one PyTorch
    library call's time and the least time the card could take (the
    bound): the larger of the bytes the call must move over the memory
@@ -131,7 +154,7 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    step), ``hamming`` through its wrapper, range check included, and
    ``lsh_hash`` and ``gather_rank`` also at the stream's 256-row bucket
    (``stream_bucket``, with their launches by path);
-15. the kernels line, the card's name and power limit, then the last
+16. the kernels line, the card's name and power limit, then the last
     line: ``{"ok": true, "device": {...}}``.
 
 Everything worth keeping is printed as one JSON object per line.
@@ -207,7 +230,7 @@ RANK_TOL = 2e-5          # gather_rank, rank_dots vs plain (the reference)
 PAIR_TOL = 1e-4          # pair_dist vs plain (reference tolerance)
 TIE_TOL = 1e-5           # oracle ids may differ only across a near-tie
 GLOVE_ROWS = 1_183_514   # glove-100-angular's train rows ...
-ITEMS = 500_000          # ... cut for the hot path, to leave time for the cold
+ITEMS = 320_000          # ... cut for the hot path, to leave time for the cold
 QUERIES = 1024           # k = 10, half self-queries, half fresh vectors
 QUERY_REPS = 7           # timed repeats of the hot path's query call
 DELETES = 4096           # enough to fill the tombstone buffer and merge
@@ -1002,7 +1025,7 @@ def phase_main(args):
 STREAM_WARM = 1024          # requests before the measured leg
 STREAM_REQUESTS = 8192      # the measured leg (cut for time from 32,768
 #                             and 16,384)
-STREAM_PER_REQUEST = 256    # the same stream, one PFOIndex call a request
+STREAM_PER_REQUEST = 128    # the same stream, one PFOIndex call a request
 #                             (cut for time)
 STREAM_FLUSH = 256          # requests a window (flush_every)
 STREAM_MIX = (0.5, 0.25, 0.125, 0.125)  # query / insert / delete / update
@@ -1164,7 +1187,7 @@ def hist(snap: dict, name: str) -> dict:
 
 
 def phase_stream(args, idx, hot: dict, rows: list):
-    """The stream engine over the hot path's 500,000-item index (reused,
+    """The stream engine over the hot path's 320,000-item index (reused,
     so no second index is built): a STREAM_WARM warm prefix, then
     STREAM_REQUESTS requests of the streaming benchmark's mix in windows
     of STREAM_FLUSH, with the launch counts set to 0 just before and read
@@ -1471,9 +1494,10 @@ def phase_checkpoint(args, idx, hot: dict, rows: list) -> None:
 # ----------------------------------------------------------------------
 # phase 8: the distributed engine on a one-rank NCCL group
 # ----------------------------------------------------------------------
-DIST_ITEMS = 16384          # inserts before the mixed leg (cut for time
-#                             from 65,536 and 32,768)
-DIST_REQUESTS = 8192        # the stream phase's mix, windows of STREAM_FLUSH
+DIST_ITEMS = 8192           # inserts before the mixed leg (cut for time
+#                             from 65,536, 32,768 and 16,384)
+DIST_REQUESTS = 4096        # the stream phase's mix, windows of STREAM_FLUSH
+#                             (cut for time from 8,192)
 DIST_BATCH = 4096           # rounds of the insert prefix (and max_batch)
 
 
@@ -1717,10 +1741,10 @@ LM_EXAMPLE = dict(L=4, C=2, m=2, l=32, t=4, max_candidates_total=128,
 #: whole table's memories (hidden states crowd into few buckets)
 LM_DATASTORE = dict(LM_EXAMPLE, max_nodes_per_tree=8192,
                     max_leaves_per_tree=40960, store_capacity=1 << 16)
-LM_FILL_SEQS = 8         # SyntheticLM sequences in the datastore, of ...
-LM_FILL_LEN = 1024       # ... 1,024 tokens: 8,192 memories (a real kNN-LM
+LM_FILL_SEQS = 4         # SyntheticLM sequences in the datastore, of ...
+LM_FILL_LEN = 1024       # ... 1,024 tokens: 4,096 memories (a real kNN-LM
 #                          datastore holds ~10^8; cut for chip time from
-#                          32,768 and 16,384)
+#                          32,768, 16,384 and 8,192)
 LM_FILL_BATCH = 8        # sequences a forward pass
 LM_INSERT = 4096         # rows an insert call
 LM_ROUNDS, LM_REQUESTS, LM_PROMPT, LM_NEW = 3, 4, 16, 16
@@ -2188,7 +2212,7 @@ NEAR_TIE_ULPS = 4
 def route_tap(seen: list):
     """A ``tapped`` keeper for ``moe.moe_apply``: each call's routing
     (expert ids and kept pairs, on the host)."""
-    def keep(p, cfg, x):
+    def keep(p, cfg, x, *rest):
         with torch.no_grad():
             r = moe_mod.routing(p, cfg, x)
         seen.append(dict(expert=r["expert"].cpu(), keep=r["keep"].cpu(),
@@ -2200,7 +2224,7 @@ def gap_tap(seen: list):
     """A ``tapped`` keeper for ``moe.moe_apply``: each call's top-k
     experts a token (sorted by id), and how far the k-th router logit
     lies above the next one, in bf16 ulps at the k-th's magnitude."""
-    def keep(p, cfg, x):
+    def keep(p, cfg, x, *rest):
         k = cfg.top_k
         with torch.no_grad():
             logits = moe_mod.dense(x.reshape(-1, x.shape[-1]),
@@ -2960,7 +2984,324 @@ def phase_families(args, card: str, rows: list) -> None:
 
 
 # ----------------------------------------------------------------------
-# phase 12: the paper's comparators on the hot path's items and queries
+# phase 12: the LM stack's sharding on a one-rank NCCL DeviceMesh
+# ----------------------------------------------------------------------
+SHARD_ARCH = "smollm_135m"
+SHARD_FILL = (4, 256)        # SyntheticLM sequences x tokens: 1,024 memories
+SHARD_REQUESTS, SHARD_PROMPT, SHARD_NEW = 4, 16, 16
+SHARD_TOL = 1e-5             # sharded vs unsharded, relative in norm (f32)
+SHARD_BF16_ROUNDS = 2        # bf16 rounds a side (the first warms up)
+SHARD_TRAIN = (256, 4)       # SyntheticLM tokens x sequences a step
+SHARD_TRAIN_STEPS = 3
+SHARD_MOE_BATCH, SHARD_MOE_LEN = 4, 64
+SHARD_DRYRUN = ("llama4_scout_17b_a16e", "decode_32k")
+
+
+def rel_norm(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double(), b.double()
+    return float(torch.linalg.vector_norm(a - b)
+                 / max(float(torch.linalg.vector_norm(b)), 1e-30))
+
+
+def one_rank_mesh():
+    """The ``(data, model)`` = (1, 1) DeviceMesh over the one-rank NCCL
+    group: every rule resolves to a replicated placement (a mesh axis of
+    size 1 is dropped), the same code as on a larger mesh."""
+    from torch.distributed.tensor import DeviceMesh
+    torch.cuda.set_device(0)
+    return DeviceMesh("cuda", torch.zeros((1, 1), dtype=torch.int64),
+                      mesh_dim_names=("data", "model"))
+
+
+def shard_datastore(d: int, mem: torch.Tensor, labels: np.ndarray,
+                    seed: int) -> tuple:
+    """A datastore of ``mem`` -> ``labels`` (the ``lm`` phase's index
+    config at dimension ``d``) behind a warmed ``StreamEngine``, and its
+    vocab map."""
+    pcfg = PFOConfig(dim=d, **LM_DATASTORE)
+    idx = PFOIndex(pcfg, seed=seed, device=DEVICE)
+    idx.insert(np.arange(len(mem), dtype=np.int32), mem)
+    vmap = np.zeros(pcfg.store_capacity, np.int32)
+    vmap[:len(mem)] = labels
+    stream = StreamEngine(idx)
+    stream.warmup()
+    return stream, vmap
+
+
+def served_logits(eng, prompt: np.ndarray) -> tuple:
+    """One round with no online inserts (so engines sharing a datastore
+    see the same one): the tokens, and the logits of every step (the
+    prefill's and each decode step's, tapped where the engine picks its
+    token)."""
+    seen = []
+    with torch.no_grad(), tapped(eng, "_next_token",
+                                 lambda logits, hidden: seen.append(
+                                     logits.float().clone())):
+        out, _ = eng.generate({"tokens": prompt}, max_new=SHARD_NEW,
+                              insert_online=False)
+    return out, seen
+
+
+def sharded_serving(args, mesh) -> dict:
+    """(a) smollm_135m at published widths: one f32 round through the
+    sharded engine against the unsharded engine on the same params and
+    datastore, then the decode-step clock of both in bf16."""
+    from repro_torch.sharding.policy import make_policy
+    base = configs.get_config(SHARD_ARCH)
+    cfg = dataclasses.replace(base, dtype=torch.float32)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(
+        args.seed), torch.float32, device=DEVICE)
+    n_seq, n_tok = SHARD_FILL
+    text = SyntheticLM(cfg.vocab_size, n_tok, n_seq, seed=args.seed).batch(0)
+    with torch.no_grad():
+        hid, _ = model.forward(params, {"tokens": torch.from_numpy(
+            text["tokens"]).to(DEVICE)})
+    mem = hid.float().reshape(-1, cfg.d_model)
+    del hid
+    stream, vmap = shard_datastore(cfg.d_model, mem,
+                                   text["labels"].reshape(-1), args.seed)
+    prompt = SyntheticLM(cfg.vocab_size, SHARD_PROMPT, SHARD_REQUESTS,
+                         seed=args.seed + 3).batch(0)["tokens"]
+
+    def engine(model, params, policy=None):
+        return ServingEngine(model, params, ServeConfig(**LM_SERVE),
+                             policy=policy, pfo_stream=stream,
+                             knn_vocab_map=vmap)
+
+    want_tok, want = served_logits(engine(model, params), prompt)
+    policy = make_policy(mesh, cfg, "serve", param_specs=model.param_specs)
+    eng = engine(model, params, policy)
+    torch.cuda.synchronize()
+    ops.reset_launches()                        # counts start here ...
+    got_tok, got = served_logits(eng, prompt)
+    torch.cuda.synchronize()
+    launches = {k: ops.LAUNCHES[k] for k in ("lsh_hash", "gather_rank")}
+    for name, n in launches.items():          # ... and stop here
+        check(n > 0, f"sharded serving: no {name} launch: {launches}")
+    check(len(got) == len(want) == SHARD_NEW + 1,
+          f"sharded serving: {len(got)} logit steps, {len(want)} unsharded")
+    errs = [rel_norm(a, b) for a, b in zip(got, want)]
+    check(max(errs) <= SHARD_TOL,
+          f"sharded logits off the unsharded ones: {max(errs)}")
+    check(np.array_equal(got_tok, want_tok), "sharded tokens differ")
+    n_dtensor = sum(1 for t in tree_leaves(param_dict(eng.params))
+                    if hasattr(t, "placements"))
+    del eng, params, model
+    torch.cuda.empty_cache()
+
+    # bf16: the host cost of DTensor dispatch in a decode step
+    model = build_model(base)
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(
+        args.seed), device=DEVICE)
+    clock = {}
+    for name, pol in (("plain", None), ("policy", make_policy(
+            mesh, base, "serve", param_specs=model.param_specs))):
+        e = engine(model, params, pol)
+        with torch.no_grad():
+            for _ in range(SHARD_BF16_ROUNDS):
+                e.obs = Obs()
+                e.generate({"tokens": prompt}, max_new=SHARD_NEW,
+                           insert_online=False)
+        h = e.obs.snapshot()["histograms"]["serving.decode_step_ms"]
+        clock[name] = dict(p50=h["p50"], p99=h["p99"], mean=h["mean"],
+                           n=h["count"])
+        del e
+    del params, model, stream
+    torch.cuda.empty_cache()
+    return dict(arch=SHARD_ARCH, memories=len(mem), requests=SHARD_REQUESTS,
+                prompt=SHARD_PROMPT, new=SHARD_NEW, f32_max_rel=max(errs),
+                tokens_equal=True, dtensor_leaves=n_dtensor,
+                launches=launches, bf16_decode_step_ms=clock,
+                dtensor_host_cost=clock["policy"]["p50"]
+                / max(clock["plain"]["p50"], 1e-9)), launches
+
+
+def sharded_training(args, mesh, tmp: str) -> dict:
+    """(b) smollm_135m at published widths through ``Trainer(policy=)``
+    against the unsharded trainer from the same state, then the sharded
+    trainer's checkpoint into an unsharded ``Trainer``, bit for bit."""
+    from repro_torch.sharding.policy import make_policy
+    cfg = configs.get_config(SHARD_ARCH)
+    model = build_model(cfg)
+    seq, batch = SHARD_TRAIN
+    data = SyntheticLM(cfg.vocab_size, seq, batch, seed=args.seed)
+
+    def trainer(name, policy=None):
+        tcfg = TrainConfig(steps=SHARD_TRAIN_STEPS, ckpt_every=10 ** 6,
+                           log_every=10 ** 6, loss_chunk=512,
+                           ckpt_dir=os.path.join(tmp, name), seed=args.seed,
+                           opt=AdamWConfig(**TRAIN_OPT))
+        return Trainer(model, data, tcfg, policy=policy, device=DEVICE)
+
+    # the unsharded steps through the step function (no checkpoint)
+    t0 = time.perf_counter()
+    plain = trainer("plain")
+    params, opt = plain._init_state()
+    step = make_train_step(model, None, plain.tcfg.opt,
+                           plain.tcfg.loss_chunk)
+    losses = []
+    for i in range(SHARD_TRAIN_STEPS):
+        params, opt, m = step(params, opt, {
+            k: torch.from_numpy(v).to(DEVICE)
+            for k, v in data.batch(i).items()})
+        losses.append(float(m["loss"]))
+    want = dict(params=params, opt=opt, losses=losses)
+    plain_s = time.perf_counter() - t0
+    policy = make_policy(mesh, cfg, "train", param_specs=model.param_specs)
+    t0 = time.perf_counter()
+    got = trainer("sharded", policy).run(resume=False)
+    sharded_s = time.perf_counter() - t0
+    a = dict(flatten_with_paths(train_loop.state_tree(want["params"],
+                                                      want["opt"])))
+    b = {k: (v.full_tensor() if hasattr(v, "full_tensor") else v)
+         for k, v in flatten_with_paths(train_loop.state_tree(
+             got["params"], got["opt"]))}
+    worst = max(rel_norm(b[k], a[k]) for k in a)
+    check(worst <= SHARD_TOL, f"sharded train state off: {worst}")
+    # the sharded trainer wrote its last step; an unsharded one reads it
+    params, opt = trainer("sharded")._init_state()
+    params, opt, _ = train_loop.restore_train_checkpoint(
+        os.path.join(tmp, "sharded"), SHARD_TRAIN_STEPS, params, opt)
+    back = dict(flatten_with_paths(train_loop.state_tree(params, opt)))
+    check(back.keys() == b.keys() and all(torch.equal(back[k], b[k])
+                                          for k in b),
+          "the sharded checkpoint did not restore bit-equal")
+    out = dict(arch=SHARD_ARCH, steps=SHARD_TRAIN_STEPS, batch=batch,
+               seq=seq, max_rel_leaf=worst, leaves=len(a),
+               losses=got["losses"], plain_losses=want["losses"],
+               plain_s=plain_s, sharded_s=sharded_s, restored_bit_equal=True)
+    del want, got, params, opt, a, b, back
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_moe(args, mesh) -> dict:
+    """(c) llama4_scout_17b_a16e at published widths, 4 of 48 layers, f32:
+    one 4 x 64 prefill through ``moe_impl="gspmd"``, each MoE block's
+    input tapped and run again through ``moe_apply_shardmap`` on the
+    mesh: rows whose pairs all survived equal, the dropped rows those the
+    reference's capacities drop (recounted by the port's plain CPU
+    routing of the same block); then the whole prefill with
+    ``moe_impl="shardmap"`` on the mesh."""
+    from repro_torch.core.dispatch import dispatch_to_trees
+    from repro_torch.sharding.policy import (distribute_cache, make_policy,
+                                             place_params)
+    full = configs.get_config(MOE_ARCH)
+    cfg = dataclasses.replace(full, n_layers=4 * MOE_REPEATS,
+                              groups=((full.groups[0][0], MOE_REPEATS),),
+                              dtype=torch.float32)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(
+        args.seed), torch.float32, device=DEVICE)
+    toks = torch.randint(0, cfg.vocab_size, (SHARD_MOE_BATCH, SHARD_MOE_LEN),
+                         generator=torch.Generator(device=DEVICE).manual_seed(
+                             args.seed + 7), device=DEVICE,
+                         dtype=torch.int32)
+    taps = []
+    with torch.no_grad(), tapped(moe_mod, "moe_apply",
+                                 lambda p, c, x, *rest: taps.append((p, x))):
+        model.forward(params, {"tokens": toks})
+    scfg = dataclasses.replace(cfg, moe_impl="shardmap")
+    policy = make_policy(mesh, scfg, "serve", param_specs=model.param_specs)
+    blocks = []
+    for p, x in taps:
+        with torch.no_grad():
+            want = moe_mod.moe_apply(p, cfg, x)
+            xd = policy.distribute(x, policy.batch_spec())
+            pd = {k: policy.distribute(v, (None,) * v.ndim)
+                  for k, v in p.items()}
+            with policy.context():
+                got, info = moe_mod.moe_apply_shardmap(
+                    pd, scfg, xd, policy.constrain, return_drops=True)
+            got, drop = got.full_tensor(), info["dropped"]
+            keep = ~drop
+            err = rel_norm(got[keep], want[keep])
+            # the plain CPU routing of the same block: S = 1, so a pair
+            # drops where its rank in its expert reaches cap2
+            n = x.shape[0] * x.shape[1]
+            r = moe_mod.routing({"router": p["router"].cpu()}, cfg,
+                                x.cpu())
+            cap2 = max(8, int(round(n * cfg.top_k / cfg.n_experts * 2.0)))
+            _, over = dispatch_to_trees(r["expert"], cfg.n_experts, cap2)
+            cpu_drop = torch.zeros(n, dtype=torch.int64).index_add(
+                0, r["token"], over.to(torch.int64)) > 0
+        check(err <= SHARD_TOL, f"shard_map MoE off on kept rows: {err}")
+        check(torch.equal(drop.cpu().reshape(-1), cpu_drop),
+              "shard_map MoE dropped other rows than the reference's "
+              "capacities do")
+        blocks.append(dict(kept_max_rel=err, dropped_rows=int(drop.sum()),
+                           cap2=cap2))
+    del taps
+    smodel = build_model(scfg)
+    with torch.no_grad():
+        logits, _, _ = engine_mod.make_prefill_step(smodel, policy)(
+            place_params(policy, model.param_specs, params),
+            {"tokens": policy.distribute(toks, policy.batch_spec())},
+            distribute_cache(policy, scfg, smodel.init_cache(
+                SHARD_MOE_BATCH, SHARD_MOE_LEN, device=DEVICE)))
+    check(bool(torch.isfinite(logits.full_tensor()).all()),
+          "the shard_map prefill's logits are not finite")
+    del params, model, smodel, logits
+    torch.cuda.empty_cache()
+    return dict(arch=MOE_ARCH, layers=cfg.layer_count(), batch=SHARD_MOE_BATCH,
+                tokens=SHARD_MOE_LEN, dtype="float32", blocks=blocks,
+                dropped_rows=sum(b["dropped_rows"] for b in blocks))
+
+
+def phase_sharded(args, card: str, rows: list) -> None:
+    """The LM stack's sharding on a one-rank NCCL DeviceMesh (the same
+    code as a larger mesh: every rule resolves to a replicated placement
+    there): (a) serving, (b) training and its checkpoint, (c) MoE's
+    all_to_all dispatch; (d) one dry-run cell at full width on the fake
+    16 x 16 world, in a subprocess on the host's CPU beside them.  The
+    sharded head's lsh_hash and gather_rank launches join the kernel
+    rows (``launches_by_path["sharded"]``)."""
+    t_phase = time.perf_counter()
+    arch, shape = SHARD_DRYRUN
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent
+                                          / "src"))
+    dry = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--mesh", "single"], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        out = {}
+        with tempfile.TemporaryDirectory() as tmp:
+            torch.distributed.init_process_group(
+                "nccl", store=torch.distributed.FileStore(f"{tmp}/pg", 1),
+                rank=0, world_size=1)
+            try:
+                mesh = one_rank_mesh()
+                t0 = time.perf_counter()
+                out["serve"], launches = sharded_serving(args, mesh)
+                out["serve"]["s"] = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                out["train"] = sharded_training(args, mesh, tmp)
+                out["train"]["s"] = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                out["moe"] = sharded_moe(args, mesh)
+                out["moe"]["s"] = time.perf_counter() - t0
+            finally:
+                torch.distributed.destroy_process_group()
+        stdout, stderr = dry.communicate(timeout=600)
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.wait()
+    recs = [json.loads(ln) for ln in stdout.splitlines()
+            if ln.startswith("{")]
+    check(dry.returncode == 0 and recs and recs[0]["ok"],
+          f"the dry-run cell failed: {stdout[-1000:]} {stderr[-2000:]}")
+    for row in rows[:2]:
+        row.setdefault("launches_by_path", {})["sharded"] = \
+            launches[row["name"]]
+    emit(phase="sharded", card=card, **out, dryrun=recs[0],
+         s=time.perf_counter() - t_phase)
+
+
+# ----------------------------------------------------------------------
+# phase 13: the paper's comparators on the hot path's items and queries
 # ----------------------------------------------------------------------
 def run_comparator(index, ids, vecs, q, batch: int):
     """Insert (ids, vecs) in batches and answer q once, with the launch
@@ -3106,7 +3447,7 @@ def phase_baselines(args, hot):
 
 
 # ----------------------------------------------------------------------
-# phase 13: the cold path at glove-100 width
+# phase 14: the cold path at glove-100 width
 # ----------------------------------------------------------------------
 COLD_TOMBSTONES = 1 << 17
 COLD_BUDGET = 256
@@ -3286,7 +3627,7 @@ def phase_cold_main(args):
 
 
 # ----------------------------------------------------------------------
-# phase 14: each kernel against its plain version, timed, with its bound
+# phase 15: each kernel against its plain version, timed, with its bound
 # ----------------------------------------------------------------------
 def hash_flips(x, a, rounding: bool = False) -> dict:
     """lsh_hash's bits on the card against its plain version and against
@@ -3466,7 +3807,7 @@ def pair_dist_at(xin) -> dict:
 
 def pair_dist_row(hot: dict, cold: dict, lm: dict, launches: dict) -> dict:
     """pair_dist at its launches on the paths, from :func:`pair_dist_at`:
-    the hot oracle's 1024 queries against 500,000 items (the row's own
+    the hot oracle's 1024 queries against 320,000 items (the row's own
     numbers, measured before the cold path runs), the cold oracle's
     against the cold path's live items, N % 4 != 0 (``cold_oracle``), and
     the LM datastore's recall oracle at d = 576 (``lm_oracle``).
@@ -3664,6 +4005,8 @@ def main() -> int:
     phase_train(args, card)
     torch.cuda.empty_cache()
     phase_families(args, card, rows)
+    torch.cuda.empty_cache()
+    phase_sharded(args, card, rows)
     torch.cuda.empty_cache()
     hot_pair = pair_dist_at(hot["oracle_in"])
     feeds = phase_baselines(args, hot)

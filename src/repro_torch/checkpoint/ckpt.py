@@ -27,6 +27,12 @@ the JAX package's logical layout — every sharded leaf with the shard
 axis first, gathered to rank 0, which writes the files — and one cold
 manifest per shard in ``extra["cold_manifests"]``, each rank
 hardlinking its own segments under ``segments/shard<k>/``.
+
+A tree with DTensor leaves (a sharded model or trainer) is written in
+the same layout: every rank gathers each leaf whole once, rank 0 writes
+the files, and every rank leaves after a barrier.  ``restore_checkpoint``
+with ``shardings`` places each leaf's shard on the mesh it names (the
+elastic restart: the mesh that wrote the checkpoint does not matter).
 """
 from __future__ import annotations
 
@@ -156,9 +162,25 @@ def save_checkpoint(ckpt_dir: str, step: int, tree, extra: dict | None = None,
     given, runs before the atomic publish, so the side files it writes
     (segment hardlinks) appear all-or-nothing with the manifest."""
     to_numpy = to_numpy or _plain_numpy
-    return _write(ckpt_dir, step, ((path, to_numpy(path, leaf)) for path, leaf
-                                   in flatten_with_paths(tree)),
-                  extra, write_extra)
+    flat = flatten_with_paths(tree)
+    if not any(_is_dtensor(leaf) for _, leaf in flat):
+        return _write(ckpt_dir, step, ((path, to_numpy(path, leaf))
+                                       for path, leaf in flat),
+                      extra, write_extra)
+    import torch.distributed as dist
+    # every rank gathers every leaf (a collective), rank 0 writes
+    arrays = [(path, to_numpy(path, leaf.full_tensor()
+                              if _is_dtensor(leaf) else leaf))
+              for path, leaf in flat]
+    final = _step_dir(ckpt_dir, step)
+    if dist.get_rank() == 0:
+        final = _write(ckpt_dir, step, arrays, extra, write_extra)
+    dist.barrier()
+    return final
+
+
+def _is_dtensor(leaf) -> bool:
+    return torch.is_tensor(leaf) and hasattr(leaf, "placements")
 
 
 def _write(ckpt_dir: str, step: int, arrays, extra, write_extra) -> str:
@@ -237,11 +259,31 @@ def _as_like(arr: np.ndarray, like, path: str):
                                               dtype=like.dtype)
 
 
+def _sharding_at(shardings, parts):
+    """The node of ``shardings`` at a leaf path of ``like`` (None where
+    the tree holds None)."""
+    node = shardings
+    for part in parts:
+        if node is None or hasattr(node, "placements"):
+            break
+        if part.startswith(".") and hasattr(node, "_fields"):
+            node = getattr(node, part[1:])
+        elif isinstance(node, dict):
+            node = node[part] if part in node else node[int(part)]
+        else:
+            node = node[int(part)]
+    return node
+
+
 def restore_checkpoint(ckpt_dir: str, step: int, like,
-                       optional: tuple = ()):
+                       optional: tuple = (), shardings=None):
     """Restore into the structure (types, dtypes, devices) of ``like``;
     returns ``(tree, extra)``.  A leaf whose path is in ``optional`` and
-    that the checkpoint lacks comes back None."""
+    that the checkpoint lacks comes back None.  ``shardings``, a tree
+    shaped like ``like`` whose leaves have ``mesh`` and ``placements``
+    (``sharding.policy.NamedSharding``) or are None, places each such
+    leaf as a DTensor: every rank reads the full leaf and keeps its own
+    block (the elastic-restart path, old mesh -> new mesh)."""
     src = _step_dir(ckpt_dir, step)
     manifest = read_manifest(ckpt_dir, step)
     by_path = {e["path"]: e for e in manifest["leaves"]}
@@ -254,6 +296,13 @@ def restore_checkpoint(ckpt_dir: str, step: int, like,
             leaves[path] = None
             continue
         leaves[path] = _as_like(_read_leaf(src, e), leaf, path)
+        sh = _sharding_at(shardings, path.split("/")) \
+            if shardings is not None else None
+        if sh is not None:
+            from torch.distributed.tensor import distribute_tensor
+            leaves[path] = distribute_tensor(leaves[path], sh.mesh,
+                                             sh.placements,
+                                             src_data_rank=None)
     return _rebuild(like, leaves), manifest["extra"]
 
 

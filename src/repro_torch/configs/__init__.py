@@ -3,8 +3,8 @@
 
 ``get_config(name, reduced=)`` returns the exact published config or a
 family-faithful reduced config for CPU tests.  ``ARCH_IDS`` is the
-assignment list.  The dry-run's input-shape cells (the JAX package's
-``configs/shapes.py``) are not ported yet (``ROADMAP.md`` Queue 1).
+assignment list; ``shapes`` holds the per-arch input-shape cells and
+``input_specs`` builds (shape, dtype) stand-ins for the dry-run.
 """
 from __future__ import annotations
 
@@ -31,3 +31,7 @@ def get_config(name: str, reduced: bool = False):
     name = ALIASES.get(name, name)
     mod = importlib.import_module(f"{__name__}.{name}")
     return mod.config(reduced=reduced)
+
+
+from . import shapes  # noqa: E402
+from .shapes import SHAPES, input_specs, runnable_cells  # noqa: E402,F401

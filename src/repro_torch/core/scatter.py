@@ -5,7 +5,8 @@ package parks masked-out rows there on purpose.  Torch raises instead
 (or trips a device assert), so masked writes go through here: rows whose
 mask is False are redirected to the first masked-in row and write that
 row's own value, so they change nothing and never race a real write.
-No host sync: the decision stays on the device.
+No host sync: the decision stays on the device (and runs on fake
+tensors, which have no values to read back).
 """
 from __future__ import annotations
 
@@ -23,7 +24,9 @@ def masked_put_(dst: torch.Tensor, index: tuple, values, mask: torch.Tensor):
     """
     n = mask.shape[0]
     any_ = mask.any()
-    j0 = mask.to(torch.uint8).argmax()          # first masked-in row, or 0
+    # first masked-in row, or 0; a (1,) index (a 0-d one reads its value
+    # back to the host)
+    j0 = mask.to(torch.uint8).argmax().reshape(1)
     idx = []
     fallback = []
     for i in index:

@@ -69,3 +69,10 @@ class VectorStream:
     def queries(self, step: int, n: int) -> np.ndarray:
         _, v = self.batch(step + 10_000, n)
         return v
+
+
+def make_batch_specs(cfg, shape_name: str) -> dict:
+    """The (shape, dtype) stand-ins of a dry-run cell's batch
+    (``configs.shapes.input_specs``)."""
+    from ..configs import input_specs
+    return input_specs(cfg, shape_name)

@@ -28,7 +28,7 @@ from typing import NamedTuple
 import torch
 
 from .common import BlockDef, ModelConfig, ParamSpec, apply_rope, dense, \
-    rmsnorm, rope_freqs
+    reshape, rmsnorm, rope_freqs
 
 NEG_INF = -1e30
 
@@ -124,7 +124,7 @@ def blockwise_attention(q, k, v, *, causal: bool, q_offset: int = 0,
                          f"(kv_chunk={kv_chunk})")
     dev = q.device
     q_pos = q_offset + torch.arange(tq, device=dev)
-    qg = q.reshape(b, tq, kv_heads, groups, dk).float()
+    qg = reshape(q, b, tq, kv_heads, groups, dk).float()
 
     o = torch.zeros((b, tq, kv_heads, groups, dv), dtype=torch.float32,
                     device=dev)
@@ -152,7 +152,20 @@ def blockwise_attention(q, k, v, *, causal: bool, q_offset: int = 0,
         l = l * a1 + lc * a2
         m = m_new
     out = o / torch.clamp_min(l[..., None], 1e-30)
-    return out.reshape(b, tq, h, dv).to(q.dtype)
+    return _positions_whole(reshape(out, b, tq, h, dv).to(q.dtype))
+
+
+def _positions_whole(out):
+    """Attention over a sequence-sharded cache leaves DTensor's output
+    split over the query positions (dim 1); that split is gathered, so a
+    product over (B, T) flattens no split inner dim (DTensor's strided
+    layout for one reads values back)."""
+    if not hasattr(out, "device_mesh") or \
+            not any(p.is_shard(1) for p in out.placements):
+        return out
+    from torch.distributed.tensor import Replicate
+    return out.redistribute(out.device_mesh, [
+        Replicate() if p.is_shard(1) else p for p in out.placements])
 
 
 def dense_decode_attention(q, k, v, *, q_pos: int, window: int = 0,
@@ -167,7 +180,7 @@ def dense_decode_attention(q, k, v, *, q_pos: int, window: int = 0,
     groups = h // kv_heads
     dv = v.shape[-1]
     scale = scale if scale is not None else 1.0 / (dk ** 0.5)
-    qg = q.reshape(b, kv_heads, groups, dk).float()
+    qg = reshape(q, b, kv_heads, groups, dk).float()
 
     sc = torch.einsum("bkgd,bskd->bkgs", qg, k.float()) * scale
     kv_pos = torch.arange(s, device=q.device)
@@ -181,7 +194,7 @@ def dense_decode_attention(q, k, v, *, q_pos: int, window: int = 0,
     sc = torch.where(mask[None, None, None, :], sc, NEG_INF)
     p = torch.softmax(sc, dim=-1)
     o = torch.einsum("bkgs,bskd->bkgd", p, v.float())
-    return o.reshape(b, 1, h, dv).to(q.dtype)
+    return reshape(o, b, 1, h, dv).to(q.dtype)
 
 
 # ----------------------------------------------------------------------
@@ -207,23 +220,57 @@ def _write(buf: torch.Tensor, start: int, new: torch.Tensor) -> None:
     if start + t > max_len:
         raise ValueError(f"KV cache full: {start} + {t} positions past "
                          f"max_len {max_len}")
+    if hasattr(buf, "device_mesh"):
+        _write_placed(buf, start, new)
+        return
     buf[:, start:start + t] = new.to(buf.dtype)
+
+
+def _write_placed(buf, start: int, new) -> None:
+    """:func:`_write` into a DTensor cache.  DTensor has no rule for a
+    slice assignment into a dim it shards (a cache sharded over
+    ``cache_seq``), so each rank writes by hand the new positions that
+    fall in its own block of the sequence: ``new`` is laid out as the
+    cache is, with its sequence dim whole, and nothing is gathered."""
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh, pl = buf.device_mesh, tuple(buf.placements)
+    want = [Replicate() if p.is_shard(1) else p for p in pl]
+    if not isinstance(new, DTensor):
+        new = DTensor.from_local(new, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    nl = new.to(buf.dtype).redistribute(mesh, want).to_local()
+    local = buf.to_local()
+    # this rank's block of the sequence: split in mesh-dim order
+    idx, n = 0, 1
+    for i, (p, c) in enumerate(zip(pl, mesh.get_coordinate())):
+        if p.is_shard(1):
+            idx, n = idx * mesh.size(i) + c, n * mesh.size(i)
+    lo = idx * -(-buf.shape[1] // n)
+    a, b = max(start, lo), min(start + new.shape[1], lo + local.shape[1])
+    if a < b:
+        local[:, a - lo:b - lo] = nl[:, a - start:b - start]
 
 
 def gqa_apply(p, cfg: ModelConfig, blk: BlockDef, x: torch.Tensor,
               positions: torch.Tensor, cache: KVCache | None = None,
-              cross_kv=None, causal: bool = True):
+              cross_kv=None, causal: bool = True,
+              constrain=lambda t, a: t):
     """Self-attention of x (B,T,D), or with ``cross_kv = (k, v)``
     cross-attention to them (no rope on the query, no mask, no cache).
-    ``causal=False`` is the encoder's.  Returns (out, new_cache)."""
+    ``causal=False`` is the encoder's.  ``constrain`` lays out q, k and
+    v by their logical axes, as the reference does (TP over heads where
+    they divide).  Returns (out, new_cache)."""
     b, t, _ = x.shape
-    q = dense(x, p["wq"], p.get("bq")).reshape(b, t, cfg.n_heads,
-                                               cfg.head_dim)
+    q = reshape(dense(x, p["wq"], p.get("bq")), b, t, cfg.n_heads,
+                cfg.head_dim)
+    q = constrain(q, ("batch", "seq", "heads", "head_dim"))
     if cross_kv is None:
-        k = dense(x, p["wk"], p.get("bk")).reshape(b, t, cfg.n_kv_heads,
-                                                   cfg.head_dim)
-        v = dense(x, p["wv"], p.get("bv")).reshape(b, t, cfg.n_kv_heads,
-                                                   cfg.head_dim)
+        k = reshape(dense(x, p["wk"], p.get("bk")), b, t, cfg.n_kv_heads,
+                    cfg.head_dim)
+        v = reshape(dense(x, p["wv"], p.get("bv")), b, t, cfg.n_kv_heads,
+                    cfg.head_dim)
+        k = constrain(k, ("batch", "seq", "kv_heads", "head_dim"))
+        v = constrain(v, ("batch", "seq", "kv_heads", "head_dim"))
         if blk.rope == "rope":
             cos, sin = rope_freqs(cfg.head_dim, cfg.rope_theta, positions)
             q = apply_rope(q, cos, sin)
@@ -250,7 +297,7 @@ def gqa_apply(p, cfg: ModelConfig, blk: BlockDef, x: torch.Tensor,
         o = blockwise_attention(
             q, k, v, causal=cross_kv is None and causal, q_offset=0,
             kv_chunk=min(1024, max(k.shape[1], 1)), **_impl_kwargs(blk))
-    out = dense(o.reshape(b, t, cfg.q_features), p["wo"])
+    out = dense(reshape(o, b, t, cfg.q_features), p["wo"])
     return out, new_cache
 
 
@@ -279,9 +326,9 @@ def mla_apply(p, cfg: ModelConfig, blk: BlockDef, x: torch.Tensor,
     qk = cfg.qk_nope_dim + cfg.qk_rope_dim
     if cfg.q_lora_rank:
         cq = rmsnorm(dense(x, p["wq_a"]), p["q_norm"], cfg.norm_eps)
-        q = dense(cq, p["wq_b"]).reshape(b, t, cfg.n_heads, qk)
+        q = reshape(dense(cq, p["wq_b"]), b, t, cfg.n_heads, qk)
     else:
-        q = dense(x, p["wq"]).reshape(b, t, cfg.n_heads, qk)
+        q = reshape(dense(x, p["wq"]), b, t, cfg.n_heads, qk)
     q_nope, q_rope = q[..., :cfg.qk_nope_dim], q[..., cfg.qk_nope_dim:]
     cos, sin = rope_freqs(cfg.qk_rope_dim, cfg.rope_theta, positions)
     q_rope = apply_rope(q_rope, cos, sin)
@@ -304,7 +351,7 @@ def mla_apply(p, cfg: ModelConfig, blk: BlockDef, x: torch.Tensor,
         kv_valid, q_off = None, 0
 
     # absorbed: q_eff = [q_nope W_kb, q_rope]; k_eff = [c_kv, k_rope]
-    wkb = p["wk_b"].reshape(cfg.kv_lora_rank, cfg.n_heads, cfg.qk_nope_dim)
+    wkb = reshape(p["wk_b"], cfg.kv_lora_rank, cfg.n_heads, cfg.qk_nope_dim)
     q_abs = torch.einsum("bthd,rhd->bthr", q_nope.float(),
                          wkb.float()).to(x.dtype)
     q_eff = torch.cat([q_abs, q_rope], dim=-1)            # (B,T,H,r+rope)
@@ -321,9 +368,9 @@ def mla_apply(p, cfg: ModelConfig, blk: BlockDef, x: torch.Tensor,
             kv_chunk=min(1024, k_eff.shape[1]), kv_len_valid=kv_valid,
             scale=1.0 / (qk ** 0.5))                      # (B,T,H,r)
 
-    wvb = p["wv_b"].reshape(cfg.kv_lora_rank, cfg.n_heads, cfg.v_head_dim)
+    wvb = reshape(p["wv_b"], cfg.kv_lora_rank, cfg.n_heads, cfg.v_head_dim)
     o = torch.einsum("bthr,rhd->bthd", lat.float(), wvb.float()).to(x.dtype)
-    out = dense(o.reshape(b, t, cfg.n_heads * cfg.v_head_dim), p["wo"])
+    out = dense(reshape(o, b, t, cfg.n_heads * cfg.v_head_dim), p["wo"])
     return out, new_cache
 
 

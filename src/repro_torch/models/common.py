@@ -244,7 +244,65 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
                      dim=-1).to(x.dtype)
 
 
+def _split_contraction(x, w):
+    """``x`` laid out for the product with ``w``: replicated on its last
+    dim where ``w``'s contraction dim is sharded, it is split there (a
+    local slice, no collective: the row-parallel product).  DTensor's own
+    choice for a replicated ``x`` views a non-contiguous local block
+    whose backward fails."""
+    from torch.distributed.tensor import Replicate, Shard
+    # a split of an inner dim (the sequence, after attention over a
+    # sequence-sharded cache) is gathered: the product flattens (B, T),
+    # and DTensor's strided layout for that reads values back (it fails
+    # on fake tensors)
+    pl = [Replicate() if p.is_shard() and 0 < p.dim < x.ndim - 1 else p
+          for p in x.placements]
+    for i, p in enumerate(w.placements):
+        if p.is_shard(0) and isinstance(pl[i], Replicate):
+            pl[i] = Shard(x.ndim - 1)
+    if pl == list(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, pl)
+
+
+def reshape(t: torch.Tensor, *shape) -> torch.Tensor:
+    """``t.reshape(shape)``.  On a DTensor, a reshaped dim stays sharded
+    only where the view keeps its blocks whole (the first reshaped dim,
+    its new size a multiple of the shard count); any other sharded dim
+    among those the view moves is gathered first, a pending sum is
+    reduced, the rest keep their placements: GSPMD reshards there too
+    (heads that do not divide the mesh axis).  DTensor's own view rule
+    would otherwise raise or build a strided layout whose backward fails
+    and whose sharding rules read values back."""
+    if not hasattr(t, "device_mesh"):
+        return t.reshape(shape)
+    from torch.distributed.tensor import Replicate
+    old = tuple(t.shape)
+    pre = 0
+    while pre < min(len(old), len(shape)) and old[pre] == shape[pre]:
+        pre += 1
+    suf = 0
+    while suf < min(len(old), len(shape)) - pre and \
+            old[-1 - suf] == shape[-1 - suf]:
+        suf += 1
+    moved = range(pre, len(old) - suf)
+    mesh, pl = t.device_mesh, list(t.placements)
+    n = math.prod(mesh.size(i) for i, p in enumerate(pl)
+                  if p.is_shard() and p.dim == pre)
+    keep = pre < len(shape) and shape[pre] % n == 0
+    # a pending sum (Partial) is reduced first: DTensor would turn it
+    # into a strided split of the merged dim, which reads values back
+    new = [Replicate() if p.is_partial() or (p.is_shard() and p.dim in moved
+                                             and not (p.dim == pre and keep))
+           else p for p in pl]
+    if new != pl:
+        t = t.redistribute(mesh, new)
+    return t.reshape(shape)
+
+
 def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None):
+    if hasattr(w, "device_mesh") and hasattr(x, "device_mesh"):
+        x = _split_contraction(x, w)
     y = torch.matmul(x, w)
     if b is not None:
         y = y + b

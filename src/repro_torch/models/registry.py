@@ -39,22 +39,25 @@ class Model(NamedTuple):
                               dtype or self.cfg.dtype,
                               default_device(device))
 
-    def loss(self, params, batch, remat: bool = True,
+    def loss(self, params, batch, constrain=tfm._ident, remat: bool = True,
              loss_chunk: int = 512):
-        return tfm.lm_loss(params, self.cfg, batch, remat=remat,
-                           loss_chunk=loss_chunk)
+        return tfm.lm_loss(params, self.cfg, batch, constrain=constrain,
+                           remat=remat, loss_chunk=loss_chunk)
 
     def forward(self, params, batch, **kw):
         return tfm.forward(params, self.cfg, batch, **kw)
 
-    def logits(self, params, hidden):
-        return tfm.logits_fn(params, self.cfg, hidden)
+    def logits(self, params, hidden, constrain=tfm._ident):
+        return tfm.logits_fn(params, self.cfg, hidden, constrain)
 
-    def prefill(self, params, batch, cache):
-        return tfm.prefill(params, self.cfg, batch, cache)
+    def prefill(self, params, batch, cache, constrain=tfm._ident):
+        return tfm.prefill(params, self.cfg, batch, cache,
+                           constrain=constrain)
 
-    def decode_step(self, params, token, cache, pos: int):
-        return tfm.decode_step(params, self.cfg, token, cache, pos=pos)
+    def decode_step(self, params, token, cache, pos: int,
+                    constrain=tfm._ident):
+        return tfm.decode_step(params, self.cfg, token, cache, pos=pos,
+                               constrain=constrain)
 
 
 def build_model(cfg: ModelConfig) -> Model:

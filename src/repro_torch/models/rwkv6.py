@@ -22,7 +22,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from .common import ModelConfig, ParamSpec, dense, rmsnorm, sigmoid, silu
+from .common import ModelConfig, ParamSpec, dense, reshape, rmsnorm, \
+    sigmoid, silu
 
 LORA_R = 32
 
@@ -88,7 +89,7 @@ def _ddlerp(p, x: torch.Tensor, x_prev: torch.Tensor) -> torch.Tensor:
     d = x.shape[-1]
     base = x_prev + (x - x_prev) * 0.5
     lo = torch.tanh(dense(base, p["ddlerp_a"]))             # (..., 5R)
-    mu_dd = dense(lo, p["ddlerp_b"]).reshape(*x.shape[:-1], 5, d)
+    mu_dd = reshape(dense(lo, p["ddlerp_b"]), *x.shape[:-1], 5, d)
     mix = p["mu_x"] + mu_dd                                 # (..., 5, D)
     return x_prev[..., None, :] + (x - x_prev)[..., None, :] * \
         sigmoid(mix)
@@ -106,9 +107,9 @@ def time_mix(p, cfg: ModelConfig, x: torch.Tensor, state: RWKVState):
     h, n = _heads(cfg)
     mixed = _ddlerp(p, x, _shift(state.tm_last, x))         # (B,T,5,D)
     xr, xk, xv, xw, xg = mixed.unbind(2)
-    r = dense(xr, p["wr"]).reshape(b, t, h, n).float()
-    k = dense(xk, p["wk"]).reshape(b, t, h, n).float()
-    v = dense(xv, p["wv"]).reshape(b, t, h, n).float()
+    r = reshape(dense(xr, p["wr"]), b, t, h, n).float()
+    k = reshape(dense(xk, p["wk"]), b, t, h, n).float()
+    v = reshape(dense(xv, p["wv"]), b, t, h, n).float()
     g = silu(dense(xg, p["wg"]))
     w = _decay(p, xw).reshape(b, t, h, n)                   # (B,T,H,N)
     u = p["u"].float()[None, :, :, None]
@@ -119,7 +120,7 @@ def time_mix(p, cfg: ModelConfig, x: torch.Tensor, state: RWKVState):
         kv = k[:, i, :, :, None] * v[:, i, :, None, :]       # (B,H,N,N)
         outs.append(torch.einsum("bhn,bhnm->bhm", r[:, i], S + u * kv))
         S = w[:, i, :, :, None] * S + kv
-    o = torch.stack(outs, 1).reshape(b, t, d).to(x.dtype)
+    o = reshape(torch.stack(outs, 1), b, t, d).to(x.dtype)
     o = rmsnorm(o, p["ln_x"], cfg.norm_eps) * g
     out = dense(o, p["wo"])
     return out, state._replace(tm_last=x[:, -1], S=S)

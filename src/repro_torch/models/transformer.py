@@ -19,8 +19,11 @@ in the backward pass instead of kept.  The patch and audio frontends
 are the reference's stubs (precomputed patch or frame embeddings arrive
 as inputs).
 
-Not ported yet (``ROADMAP.md`` Queue 1 item 7): MoE's ``shard_map``
-dispatch; a config that asks for it raises ``NotImplementedError``.
+The ``constrain(tensor, logical_axes)`` callback threads sharding
+annotations through the model at the reference's call sites (a
+``ShardingPolicy``'s ``constrain``; the identity by default, so an
+unsharded run is unchanged).  ``cfg.moe_impl == "shardmap"`` routes MoE
+blocks through ``moe.moe_apply_shardmap`` (the all_to_all dispatch).
 
 The functional API takes ``params`` as a :class:`Transformer` or as the
 nested dict :func:`param_dict` makes of one (any tensors: a trainer
@@ -38,17 +41,20 @@ from . import moe as moe_mod
 from . import rglru as rglru_mod
 from . import rwkv6 as rwkv_mod
 from .common import BlockDef, ModelConfig, ParamSpec, activation, dense, \
-    layernorm, map_specs, rmsnorm
+    layernorm, map_specs, reshape, rmsnorm
 
 GROUP_KEYS = ("groups", "enc_groups")       # the stacked layer lists
+
+
+def _ident(t, axes):
+    return t
 
 
 def _check_supported(blk: BlockDef, cfg: ModelConfig) -> None:
     if blk.kind not in ("attn", "mla", "rwkv", "rglru"):
         raise ValueError(blk.kind)
-    if blk.moe and cfg.moe_impl == "shardmap":
-        raise NotImplementedError("MoE's shard_map dispatch is not ported "
-                                  "yet (ROADMAP.md Queue 1 item 7)")
+    if cfg.moe_impl not in ("gspmd", "shardmap"):
+        raise ValueError(cfg.moe_impl)
 
 
 def _all_blocks(cfg: ModelConfig):
@@ -82,12 +88,14 @@ def mlp_param_specs(cfg: ModelConfig) -> dict:
     return sp
 
 
-def mlp_apply(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def mlp_apply(p, cfg: ModelConfig, x: torch.Tensor,
+              constrain=_ident) -> torch.Tensor:
     if cfg.act in ("silu", "geglu"):
         act = activation("silu" if cfg.act == "silu" else "gelu")
         h = act(dense(x, p["wg"])) * dense(x, p["wi"])
     else:
         h = activation(cfg.act)(dense(x, p["wi"]))
+    h = constrain(h, ("batch", "seq", "ffn"))
     return dense(h, p["wo"])
 
 
@@ -304,7 +312,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 # forward
 # ======================================================================
 def apply_block(blk: BlockDef, bp, cfg: ModelConfig, x: torch.Tensor,
-                positions, bcache, enc_out=None, causal: bool = True):
+                positions, bcache, enc_out=None, causal: bool = True,
+                constrain=_ident):
     """One block.  ``bcache`` None runs without a cache; ``enc_out``
     (B, enc_len, D) feeds a cross-attention block, which otherwise reads
     the cross keys and values a prefill stored in ``bcache``.  Returns
@@ -315,7 +324,8 @@ def apply_block(blk: BlockDef, bp, cfg: ModelConfig, x: torch.Tensor,
     if blk.kind in ("attn", "mla"):
         apply = attn_mod.gqa_apply if blk.kind == "attn" else \
             attn_mod.mla_apply
-        kw = {"causal": causal} if blk.kind == "attn" else {}
+        kw = {"causal": causal, "constrain": constrain} \
+            if blk.kind == "attn" else {}
         o, kv = apply(bp["attn"], cfg, blk, h, positions,
                       cache=bcache["kv"] if bcache is not None else None,
                       **kw)
@@ -332,7 +342,7 @@ def apply_block(blk: BlockDef, bp, cfg: ModelConfig, x: torch.Tensor,
         x = x + o2
         if new_cache is not None:
             new_cache["state"] = st
-        return x, new_cache
+        return constrain(x, ("batch", "seq", "embed")), new_cache
     else:
         st = bcache["state"] if bcache is not None else \
             rglru_mod.rglru_init_state(cfg, x.shape[0], x.dtype, x.device)
@@ -345,8 +355,8 @@ def apply_block(blk: BlockDef, bp, cfg: ModelConfig, x: torch.Tensor,
         hx = _apply_norm(cfg, bp, "lnx", x)
         if enc_out is not None:                       # train / prefill
             shape = (*enc_out.shape[:2], cfg.n_kv_heads, cfg.head_dim)
-            ck = dense(enc_out, bp["cross"]["wk"]).reshape(shape)
-            cv = dense(enc_out, bp["cross"]["wv"]).reshape(shape)
+            ck = reshape(dense(enc_out, bp["cross"]["wk"]), *shape)
+            cv = reshape(dense(enc_out, bp["cross"]["wv"]), *shape)
             if new_cache is not None:
                 new_cache["cross_k"] = ck.to(new_cache["cross_k"].dtype)
                 new_cache["cross_v"] = cv.to(new_cache["cross_v"].dtype)
@@ -361,23 +371,27 @@ def apply_block(blk: BlockDef, bp, cfg: ModelConfig, x: torch.Tensor,
 
     h2 = _apply_norm(cfg, bp, "ln2", x)
     if blk.moe:
-        x = x + moe_mod.moe_apply(bp["moe"], cfg, h2)
+        moe_fn = (moe_mod.moe_apply_shardmap
+                  if cfg.moe_impl == "shardmap" else moe_mod.moe_apply)
+        x = x + moe_fn(bp["moe"], cfg, h2, constrain)
     else:
-        x = x + mlp_apply(bp["mlp"], cfg, h2)
-    return x, new_cache
+        x = x + mlp_apply(bp["mlp"], cfg, h2, constrain)
+    return constrain(x, ("batch", "seq", "embed")), new_cache
 
 
-def _layer(pat, lp, cfg: ModelConfig, x, positions, enc_out, causal):
+def _layer(pat, lp, cfg: ModelConfig, x, positions, enc_out, causal,
+           constrain):
     """One layer (one repeat of the group's pattern) with no cache: the
     body that ``remat`` checkpoints."""
     for i, blk in enumerate(pat):
         x, _ = apply_block(blk, lp[f"b{i}"], cfg, x, positions, None,
-                           enc_out, causal)
+                           enc_out, causal, constrain)
     return x
 
 
 def run_groups(groups_cfg, gparams_list, x, caches, *, cfg, positions,
-               enc_out=None, causal: bool = True, remat: bool = False):
+               enc_out=None, causal: bool = True, remat: bool = False,
+               constrain=_ident):
     """Every layer of every group in order (a Python loop, no scan).
     ``gparams_list[g][layer]`` and ``caches[g][layer]`` hold one layer's
     ``{"b<i>": ...}``.  ``remat`` (no caches) recomputes each layer's
@@ -388,10 +402,12 @@ def run_groups(groups_cfg, gparams_list, x, caches, *, cfg, positions,
             for lp in layers:
                 if remat:
                     x = checkpoint(_layer, pat, lp, cfg, x, positions,
-                                   enc_out, causal, use_reentrant=False,
+                                   enc_out, causal, constrain,
+                                   use_reentrant=False,
                                    preserve_rng_state=False)
                 else:
-                    x = _layer(pat, lp, cfg, x, positions, enc_out, causal)
+                    x = _layer(pat, lp, cfg, x, positions, enc_out, causal,
+                               constrain)
         return x, None
     new_caches = []
     for gi, (pat, rep) in enumerate(groups_cfg):
@@ -402,24 +418,25 @@ def run_groups(groups_cfg, gparams_list, x, caches, *, cfg, positions,
             for i, blk in enumerate(pat):
                 x, lc_new[f"b{i}"] = apply_block(
                     blk, lp[f"b{i}"], cfg, x, positions, lc[f"b{i}"],
-                    enc_out, causal)
+                    enc_out, causal, constrain)
             out.append(lc_new)
         new_caches.append(out)
     return x, new_caches
 
 
-def embed_inputs(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+def embed_inputs(params, cfg: ModelConfig, batch: dict,
+                 constrain=_ident) -> torch.Tensor:
     """Token + frontend-stub embedding -> (B, T, D)."""
     x = params["embed"][batch["tokens"].long()].to(cfg.dtype)
     if cfg.frontend == "patch" and "patches" in batch:
         pe = (batch["patches"].to(cfg.dtype)
               + params["patch_pos"][None].to(cfg.dtype))
         x = torch.cat([pe, x], dim=1)
-    return x
+    return constrain(x, ("batch", "seq", "embed"))
 
 
 def encode(params: dict, cfg: ModelConfig, batch: dict,
-           remat: bool = False) -> torch.Tensor:
+           remat: bool = False, constrain=_ident) -> torch.Tensor:
     """The whisper encoder over stub frame embeddings
     ``batch["features"]`` (B, enc_len, D), non-causal, on params already
     cast to ``cfg.dtype``."""
@@ -428,7 +445,7 @@ def encode(params: dict, cfg: ModelConfig, batch: dict,
     positions = torch.arange(x.shape[1], device=x.device)
     x, _ = run_groups(cfg.enc_groups, params["enc_groups"], x, None,
                       cfg=cfg, positions=positions, causal=False,
-                      remat=remat)
+                      remat=remat, constrain=constrain)
     return _apply_norm(cfg, {k[len("enc_"):]: v for k, v in params.items()
                              if k.startswith("enc_final")}, "final", x)
 
@@ -451,56 +468,69 @@ def _cast_params(params, dtype: torch.dtype):
 
 
 def forward(params, cfg: ModelConfig, batch: dict, *, caches=None,
-            positions=None, remat: bool = False):
+            positions=None, remat: bool = False, constrain=_ident):
     """Returns (hidden (B,T,D), new_caches)."""
     return _forward(_cast_params(params, cfg.dtype), cfg, batch, caches,
-                    positions, remat)
+                    positions, remat, constrain)
 
 
 def _forward(params: dict, cfg: ModelConfig, batch: dict, caches,
-             positions, remat: bool = False):
+             positions, remat: bool = False, constrain=_ident):
     """:func:`forward` on params already cast to ``cfg.dtype``."""
     enc_out = None
     if cfg.enc_groups and "features" in batch:
-        enc_out = encode(params, cfg, batch, remat)
-    x = embed_inputs(params, cfg, batch)
+        enc_out = encode(params, cfg, batch, remat, constrain)
+    x = embed_inputs(params, cfg, batch, constrain)
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
     x, new_caches = run_groups(cfg.groups, params["groups"], x, caches,
                                cfg=cfg, positions=positions,
-                               enc_out=enc_out, remat=remat)
+                               enc_out=enc_out, remat=remat,
+                               constrain=constrain)
     x = _apply_norm(cfg, params, "final", x)
-    return x, new_caches
+    return constrain(x, ("batch", "seq", "embed")), new_caches
 
 
-def logits_fn(params, cfg: ModelConfig, hidden: torch.Tensor):
+def logits_fn(params, cfg: ModelConfig, hidden: torch.Tensor,
+              constrain=_ident):
     """(B,T,D) -> (B,T,V) logits, in the hidden's dtype."""
-    return _logits(_cast_params(params, cfg.dtype), cfg, hidden)
+    return _logits(_cast_params(params, cfg.dtype), cfg, hidden, constrain)
 
 
-def _logits(params: dict, cfg: ModelConfig, hidden: torch.Tensor):
+def _logits(params: dict, cfg: ModelConfig, hidden: torch.Tensor,
+            constrain=_ident):
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return torch.matmul(hidden, w.to(hidden.dtype))
+    return constrain(torch.matmul(hidden, w.to(hidden.dtype)),
+                     ("batch", "seq", "vocab"))
 
 
-def _chunk_loss(h: torch.Tensor, labels: torch.Tensor,
-                w: torch.Tensor) -> torch.Tensor:
+def _chunk_loss(h: torch.Tensor, labels: torch.Tensor, w: torch.Tensor,
+                constrain=_ident) -> torch.Tensor:
     """Summed ``logsumexp - gold`` of one chunk: h (B,c,D), labels (B,c);
-    the logits in float32, from a product in h's dtype."""
-    logits = torch.matmul(h, w.to(h.dtype)).float()
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    the logits in float32, from a product in h's dtype.  On DTensor
+    logits (vocab-sharded) the gold logit is a masked sum over the vocab,
+    the one nonzero term exact: DTensor's gather rule over a sharded
+    vocab fails on this op chain."""
+    logits = constrain(torch.matmul(h, w.to(h.dtype)).float(),
+                       ("batch", "seq", "vocab"))
+    if hasattr(logits, "device_mesh"):
+        vocab = torch.arange(logits.shape[-1], device=labels.device)
+        gold = torch.where(vocab == labels[..., None].long(), logits,
+                           0.0).sum(-1)
+    else:
+        gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     return torch.sum(torch.logsumexp(logits, dim=-1) - gold)
 
 
 def lm_loss(params, cfg: ModelConfig, batch: dict, *, remat: bool = True,
-            loss_chunk: int = 512) -> torch.Tensor:
+            loss_chunk: int = 512, constrain=_ident) -> torch.Tensor:
     """Next-token cross-entropy, sequence-chunked: the (B, T, V) logits
     are never materialised, one (B, T / n_chunks, V) chunk at a time,
     where n_chunks is the largest count <= T // loss_chunk that divides
     T.  Summed in float32 and divided by B * T.  ``remat`` also
     recomputes each chunk's logits in the backward pass."""
     cparams = _cast_params(params, cfg.dtype)
-    hidden, _ = _forward(cparams, cfg, batch, None, None, remat)
+    hidden, _ = _forward(cparams, cfg, batch, None, None, remat, constrain)
     labels = batch["labels"]
     if cfg.frontend == "patch" and "patches" in batch:
         hidden = hidden[:, -labels.shape[1]:]
@@ -514,15 +544,19 @@ def lm_loss(params, cfg: ModelConfig, batch: dict, *, remat: bool = True,
     for i in range(n_chunks):
         h, lab = hidden[:, i * c:(i + 1) * c], labels[:, i * c:(i + 1) * c]
         if remat:
-            total = total + checkpoint(_chunk_loss, h, lab, w,
+            total = total + checkpoint(_chunk_loss, h, lab, w, constrain,
                                        use_reentrant=False,
                                        preserve_rng_state=False)
         else:
-            total = total + _chunk_loss(h, lab, w)
+            total = total + _chunk_loss(h, lab, w, constrain)
+    if hasattr(total, "full_tensor"):
+        # a 0-d DTensor's division backward fails on a Partial sum
+        total = total.full_tensor()
     return total / (b * t)
 
 
-def prefill(params, cfg: ModelConfig, batch: dict, cache):
+def prefill(params, cfg: ModelConfig, batch: dict, cache,
+            constrain=_ident):
     """Fill caches with the prompt.  Returns (last_logits (B,1,V),
     caches, last_hidden (B,D)): the last position's final hidden state
     comes back too, from the same pass (the kNN-LM head's query; the
@@ -533,15 +567,17 @@ def prefill(params, cfg: ModelConfig, batch: dict, cache):
     params = _cast_params(params, cfg.dtype)
     hidden, caches = _forward(
         params, cfg, batch, cache,
-        torch.arange(tlen, device=batch["tokens"].device))
+        torch.arange(tlen, device=batch["tokens"].device),
+        constrain=constrain)
     last = hidden[:, -1:]
-    return _logits(params, cfg, last), caches, last[:, 0]
+    return _logits(params, cfg, last, constrain), caches, last[:, 0]
 
 
 def decode_step(params, cfg: ModelConfig, token: torch.Tensor, cache, *,
-                pos: int):
+                pos: int, constrain=_ident):
     """One decode step: token (B, 1) at absolute position ``pos``."""
     params = _cast_params(params, cfg.dtype)
     hidden, caches = _forward(params, cfg, {"tokens": token}, cache,
-                              pos + torch.arange(1, device=token.device))
-    return _logits(params, cfg, hidden), caches
+                              pos + torch.arange(1, device=token.device),
+                              constrain=constrain)
+    return _logits(params, cfg, hidden, constrain), caches

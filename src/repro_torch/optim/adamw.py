@@ -99,8 +99,8 @@ def cosine_schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 def adamw_init(cfg: AdamWConfig, params) -> OptState:
     """Zero moments in float32, a float32 master copy when
     ``use_master``, step 0 on the params' device."""
-    zeros = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                           device=p.device), params)
+    zeros = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                     params)
     master = tree_map(lambda p: p.detach().to(torch.float32, copy=True),
                       params) if cfg.use_master else None
     device = tree_leaves(params)[0].device

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..obs import NULL_OBS
+from ..sharding.policy import distribute_cache, gathered, place_params
 from .stream import StreamEngine
 
 
@@ -47,29 +48,31 @@ def _log_softmax(x: torch.Tensor) -> torch.Tensor:
     return u - torch.log(torch.exp(u).sum(-1, keepdim=True))
 
 
-def _no_policy(policy) -> None:
-    if policy is not None:
-        raise NotImplementedError("sharded serving (a ShardingPolicy) is "
-                                  "not ported yet (ROADMAP.md Queue 1)")
-
-
 def make_prefill_step(model, policy=None):
     """``prefill(params, batch, cache) -> (last_logits, cache,
-    last_hidden)`` (see ``transformer.prefill``)."""
-    _no_policy(policy)
+    last_hidden)`` (see ``transformer.prefill``).  With a policy the
+    step runs in its scope and lays out activations by its
+    ``constrain``; params, batch and cache arrive placed (DTensors)."""
+    if policy is None:
+        return model.prefill
 
     def prefill(params, batch, cache):
-        return model.prefill(params, batch, cache)
+        with policy.context():
+            return model.prefill(params, batch, cache,
+                                 constrain=policy.constrain)
 
     return prefill
 
 
 def make_decode_step(model, policy=None):
     """``decode(params, token, cache, pos) -> (logits, cache)``."""
-    _no_policy(policy)
+    if policy is None:
+        return model.decode_step
 
     def decode(params, token, cache, pos: int):
-        return model.decode_step(params, token, cache, pos)
+        with policy.context():
+            return model.decode_step(params, token, cache, pos,
+                                     constrain=policy.constrain)
 
     return decode
 
@@ -84,7 +87,16 @@ class ServingEngine:
 
     def __init__(self, model, params, scfg: ServeConfig, policy=None,
                  pfo_index=None, knn_vocab_map=None, pfo_stream=None):
-        self.model, self.params, self.scfg = model, params, scfg
+        """With a ``policy`` (a ``ShardingPolicy`` on a DeviceMesh) the
+        engine serves a placed copy of ``params`` (their placements from
+        ``param_shardings``), places each batch by ``batch_sharding`` and
+        each cache by ``cache_pspecs``; logits and the kNN head's hidden
+        state come back to every rank whole.  The PFO datastore is not
+        sharded."""
+        self.model, self.scfg, self.policy = model, scfg, policy
+        if policy is not None:
+            params = place_params(policy, model.param_specs, params)
+        self.params = params
         self.device = params["embed"].device
         self.prefill_step = make_prefill_step(model, policy)
         self.decode_step = make_decode_step(model, policy)
@@ -150,6 +162,12 @@ class ServingEngine:
             raise NotImplementedError("greedy only in the offline build")
         return torch.argmax(logp, dim=-1).to(torch.int32)
 
+    def _placed_token(self, tok: torch.Tensor) -> torch.Tensor:
+        """The next step's (B, 1) tokens, placed by the batch rule."""
+        if self.policy is None:
+            return tok[:, None]
+        return self.policy.distribute(tok[:, None], self.policy.batch_spec())
+
     # -- serving ---------------------------------------------------------
     def _mark(self):
         """A point on the step clock: a recorded CUDA event on a card
@@ -179,11 +197,17 @@ class ServingEngine:
         cache = self.model.init_cache(b, total, device=self.device)
         batch = {k: torch.as_tensor(v).to(self.device)
                  for k, v in batch.items()}
+        pol = self.policy
+        if pol is not None:
+            cache = distribute_cache(pol, cfg, cache)
+            batch = {k: pol.distribute(v, pol.batch_spec())
+                     for k, v in batch.items()}
         knn = self.stream is not None and self.scfg.knn_lambda > 0
         t0 = time.perf_counter()
         with self.obs.span("prefill", batch=b, prompt_len=prompt_len):
             logits, cache, last = self.prefill_step(self.params, batch,
                                                     cache)
+            logits, last = gathered(logits), gathered(last)
             # the kNN head's query and the datastore's new memories
             last_hidden = None
             if knn or (insert_online and self.stream is not None):
@@ -200,7 +224,8 @@ class ServingEngine:
             out[:, i] = tok
             with self.obs.span("decode", step=i):
                 logits, cache = self.decode_step(
-                    self.params, tok[:, None], cache, pos + i)
+                    self.params, self._placed_token(tok), cache, pos + i)
+                logits = gathered(logits)
                 # decode steps do not consult the kNN head (hidden=None)
                 tok = self._next_token(logits[:, 0], None)
             marks.append(self._mark())

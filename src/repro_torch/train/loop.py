@@ -16,11 +16,21 @@ in place under ``torch.no_grad()``: the module keeps its identity.
   * **straggler hook**: a step slower than ``step_timeout_s`` is noted in
     ``slow_steps`` for an orchestrator to act on.
 
-One host readback a step: the loss, as a float.  A sharded step (a
-``ShardingPolicy``) is not ported yet (``ROADMAP.md`` Queue 1 item 7).
+One host readback a step: the loss, as a float.
+
+With a ``ShardingPolicy`` the params are DTensors placed by its
+``param_shardings`` (in place in the module), the AdamW moments and
+master weights take the params' placements (the reference's
+``in_shardings`` / ``out_shardings``), each batch is placed by its
+``batch_sharding``, and the step runs in the policy's scope with its
+``constrain``.  A checkpoint of a sharded trainer is written in the JAX
+layout, full leaves gathered once and written by rank 0; a restore
+places each leaf's shard for the trainer's mesh, whatever mesh wrote
+it (the elastic restart).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import tempfile
@@ -30,9 +40,11 @@ import torch
 
 from ..checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from ..core.device import default_device
-from ..models.transformer import param_dict, stack_layers, unstack_layers
+from ..models.transformer import _ident, param_dict, stack_layers, \
+    unstack_layers
 from ..optim import AdamWConfig, adamw_init, adamw_update
 from ..optim.adamw import OptState, tree_leaves, tree_map, tree_unflatten
+from ..sharding.policy import NamedSharding, gathered, place_params
 
 
 @dataclasses.dataclass
@@ -47,34 +59,32 @@ class TrainConfig:
     opt: AdamWConfig = dataclasses.field(default_factory=AdamWConfig)
 
 
-def _no_policy(policy) -> None:
-    if policy is not None:
-        raise NotImplementedError("sharded training (a ShardingPolicy) is "
-                                  "not ported yet (ROADMAP.md Queue 1 "
-                                  "item 7)")
-
-
 def make_train_step(model, policy, opt_cfg: AdamWConfig,
                     loss_chunk: int = 512):
     """Returns ``step(params, opt, batch) -> (params, opt, metrics)``:
     ``params`` (a ``Transformer``) updated in place and returned,
     ``metrics`` 0-d tensors on its device (``loss``, ``grad_norm``,
-    ``lr``)."""
-    _no_policy(policy)
+    ``lr``).  With a ``policy`` the params, optimizer state and batch
+    arrive placed (see :class:`Trainer`) and keep their placements."""
     gdtype = torch.bfloat16 if opt_cfg.grad_dtype == "bf16" else None
+    constrain = policy.constrain if policy is not None else _ident
+    scope = policy.context if policy is not None else contextlib.nullcontext
 
     def step(params, opt: OptState, batch: dict):
-        tree = param_dict(params)
-        leaves = tree_map(lambda p: p.detach().to(gdtype or p.dtype)
-                          .requires_grad_(), tree)
-        loss = model.loss(leaves, batch, remat=True, loss_chunk=loss_chunk)
-        grads = tree_unflatten(leaves, torch.autograd.grad(
-            loss, tree_leaves(leaves)))
-        new, opt, metrics = adamw_update(opt_cfg, grads, opt, tree)
-        with torch.no_grad():
-            for p, n in zip(tree_leaves(tree), tree_leaves(new)):
-                p.copy_(n)
-        metrics["loss"] = loss.detach()
+        with scope():
+            tree = param_dict(params)
+            leaves = tree_map(lambda p: p.detach().to(gdtype or p.dtype)
+                              .requires_grad_(), tree)
+            loss = model.loss(leaves, batch, constrain=constrain,
+                              remat=True, loss_chunk=loss_chunk)
+            grads = tree_unflatten(leaves, torch.autograd.grad(
+                loss, tree_leaves(leaves)))
+            new, opt, metrics = adamw_update(opt_cfg, grads, opt, tree)
+            with torch.no_grad():
+                for p, n in zip(tree_leaves(tree), tree_leaves(new)):
+                    p.copy_(n)
+            metrics["loss"] = loss.detach()
+            metrics = {k: gathered(v) for k, v in metrics.items()}
         return params, opt, metrics
 
     return step
@@ -97,13 +107,30 @@ def save_train_checkpoint(ckpt_dir: str, step: int, params, opt: OptState,
     return save_checkpoint(ckpt_dir, step, state_tree(params, opt), extra)
 
 
+def _placements_of(tree):
+    """``tree`` with each DTensor leaf's ``NamedSharding`` and every
+    other leaf None."""
+    if isinstance(tree, dict):
+        return {k: _placements_of(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not hasattr(tree, "_fields"):
+        return [_placements_of(v) for v in tree]
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(_placements_of(v) for v in tree))
+    if hasattr(tree, "placements"):
+        return NamedSharding(tree.device_mesh, tuple(tree.placements))
+    return None
+
+
 def restore_train_checkpoint(ckpt_dir: str, step: int, params,
                              opt: OptState):
-    """Load ``step`` into ``params`` in place (dtypes and devices kept)
-    and into a new OptState shaped like ``opt``.  Returns
+    """Load ``step`` into ``params`` in place (dtypes, devices and
+    placements kept) and into a new OptState shaped like ``opt``.  A
+    sharded ``params`` / ``opt`` takes each leaf's shard for its own
+    mesh, whatever mesh wrote the checkpoint.  Returns
     ``(params, opt, extra)``."""
-    (ptree, o), extra = restore_checkpoint(ckpt_dir, step,
-                                           state_tree(params, opt))
+    like = state_tree(params, opt)
+    (ptree, o), extra = restore_checkpoint(ckpt_dir, step, like,
+                                           shardings=_placements_of(like))
     with torch.no_grad():
         for p, x in zip(tree_leaves(param_dict(params)),
                         tree_leaves(unstack_layers(ptree))):
@@ -118,8 +145,11 @@ def restore_train_checkpoint(ckpt_dir: str, step: int, params,
 class Trainer:
     def __init__(self, model, data, tcfg: TrainConfig, policy=None,
                  device=None):
-        """Runs on ``device`` (CUDA when None)."""
+        """Runs on ``device`` (CUDA when None); with a ``policy`` (a
+        ``ShardingPolicy`` on a DeviceMesh of that device type) sharded
+        over its mesh."""
         self.model, self.data, self.tcfg = model, data, tcfg
+        self.policy = policy
         self.device = default_device(device)
         self.step_fn = make_train_step(model, policy, tcfg.opt,
                                        tcfg.loss_chunk)
@@ -130,6 +160,9 @@ class Trainer:
         seeded ``seed``; fresh optimizer state."""
         g = torch.Generator(device=self.device).manual_seed(self.tcfg.seed)
         params = self.model.init(g, torch.float32, device=self.device)
+        if self.policy is not None:
+            place_params(self.policy, self.model.param_specs, params,
+                         inplace=True)
         return params, adamw_init(self.tcfg.opt, param_dict(params))
 
     def run(self, resume: bool = True) -> dict:
@@ -146,6 +179,9 @@ class Trainer:
         for step in range(start, tcfg.steps):
             batch = {k: torch.from_numpy(v).to(self.device)
                      for k, v in self.data.batch(step).items()}
+            if self.policy is not None:
+                batch = {k: self.policy.distribute(v, self.policy.batch_spec())
+                         for k, v in batch.items()}
             t0 = time.time()
             params, opt, metrics = self.step_fn(params, opt, batch)
             loss = float(metrics["loss"])

@@ -923,3 +923,128 @@ def test_trainer_defaults_to_the_card_and_resumes(tmp_path):
     out = Trainer(build_model(cfg), data, tcfg(4)).run(resume=True)
     assert len(out["losses"]) == 2 and int(out["opt"].step) == 4
     assert np.isfinite(out["losses"]).all()
+
+
+# ======================================================================
+# the LM stack's sharding on a one-rank NCCL DeviceMesh
+# ======================================================================
+@pytest.fixture
+def nccl_mesh(tmp_path):
+    """A one-rank NCCL group and its (data, model) = (1, 1) DeviceMesh,
+    torn down after the test."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch.distributed as dist
+    from torch.distributed.tensor import DeviceMesh
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "pg"), 1), rank=0, world_size=1)
+    try:
+        yield DeviceMesh("cuda", torch.zeros((1, 1), dtype=torch.int64),
+                         mesh_dim_names=("data", "model"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _rel(a, b) -> float:
+    a, b = a.double(), b.double()
+    return float(torch.linalg.vector_norm(a - b)
+                 / max(float(torch.linalg.vector_norm(b)), 1e-30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,impl", [
+    ("smollm_135m", "gspmd"), ("llama4_scout_17b_a16e", "shardmap"),
+    ("deepseek_v2_236b", "gspmd"), ("recurrentgemma_9b", "gspmd")])
+def test_sharded_serving_on_one_rank_nccl(nccl_mesh, arch, impl):
+    """Reduced f32: prefill and 4 decode steps with the serve policy
+    (params, batch and cache placed) equal the unsharded steps within
+    1e-5 relative in norm.  The shard_map MoE's prompt is 2 x 4 tokens:
+    on one rank its local capacity cap2 = max(8, 2 n / E) rows then
+    holds every pair (the unsharded block drops none)."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import make_decode_step, \
+        make_prefill_step
+    from repro_torch.sharding.policy import distribute_cache, make_policy, \
+        place_params
+    cfg = dataclasses.replace(configs.get_config(arch, reduced=True),
+                              dtype=torch.float32, moe_impl=impl)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    pol = make_policy(nccl_mesh, cfg, "serve", param_specs=model.param_specs)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    t = 4 if impl == "shardmap" else 12
+    toks = torch.randint(0, cfg.vocab_size, (2, t), generator=g,
+                         device="cuda", dtype=torch.int32)
+    nxt = torch.randint(0, cfg.vocab_size, (4, 2, 1), generator=g,
+                        device="cuda", dtype=torch.int32)
+    outs = []
+    for sharded in (False, True):
+        cache = model.init_cache(2, 16, device="cuda")
+        p, batch = params, {"tokens": toks}
+        prefill, decode = model.prefill, model.decode_step
+        if sharded:
+            p = place_params(pol, model.param_specs, params)
+            cache = distribute_cache(pol, cfg, cache)
+            batch = {"tokens": pol.distribute(toks, pol.batch_spec())}
+            prefill = make_prefill_step(model, pol)
+            decode = make_decode_step(model, pol)
+        with torch.no_grad():
+            logits, cache, _ = prefill(p, batch, cache)
+            got = [logits]
+            for i in range(4):
+                tok = pol.distribute(nxt[i], pol.batch_spec()) if sharded \
+                    else nxt[i]
+                logits, cache = decode(p, tok, cache, t + i)
+                got.append(logits)
+        outs.append([t.full_tensor() if hasattr(t, "full_tensor") else t
+                     for t in got])
+    for a, b in zip(outs[1], outs[0]):
+        assert a.is_cuda and _rel(a, b) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,impl", [("smollm_135m", "gspmd"),
+                                       ("llama4_scout_17b_a16e", "shardmap")])
+def test_sharded_training_on_one_rank_nccl(nccl_mesh, tmp_path, arch, impl):
+    """Reduced f32: 3 ``Trainer(policy=)`` steps on the card equal the
+    unsharded trainer's within 1e-5 a leaf, and the sharded checkpoint
+    restores bit-equal into an unsharded trainer (the shard_map MoE on
+    2 x 4-token batches, so that cap2 holds every pair)."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.checkpoint.ckpt import flatten_with_paths
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.sharding.policy import make_policy
+    from repro_torch.train import TrainConfig, Trainer
+    from repro_torch.train.loop import restore_train_checkpoint, state_tree
+    cfg = dataclasses.replace(configs.get_config(arch, reduced=True),
+                              dtype=torch.float32, moe_impl=impl)
+    model = build_model(cfg)
+    seq, batch = (4, 2) if impl == "shardmap" else (16, 4)
+    data = SyntheticLM(cfg.vocab_size, seq, batch, seed=3)
+
+    def trainer(name, policy=None):
+        return Trainer(model, data, TrainConfig(
+            steps=3, ckpt_every=10 ** 6, log_every=10 ** 6, loss_chunk=8,
+            ckpt_dir=str(tmp_path / name), opt=AdamWConfig(
+                lr=1e-3, warmup_steps=1, total_steps=10)), policy=policy)
+
+    want = trainer("plain").run(resume=False)
+    pol = make_policy(nccl_mesh, cfg, "train", param_specs=model.param_specs)
+    got = trainer("sharded", pol).run(resume=False)
+    a = dict(flatten_with_paths(state_tree(want["params"], want["opt"])))
+    b = {k: v.full_tensor() if hasattr(v, "full_tensor") else v
+         for k, v in flatten_with_paths(state_tree(got["params"],
+                                                   got["opt"]))}
+    assert max(_rel(b[k], a[k]) for k in a) <= 1e-5
+    params, opt = trainer("sharded")._init_state()
+    params, opt, _ = restore_train_checkpoint(str(tmp_path / "sharded"), 3,
+                                              params, opt)
+    back = dict(flatten_with_paths(state_tree(params, opt)))
+    assert all(torch.equal(back[k], b[k]) for k in b)

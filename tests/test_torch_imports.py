@@ -1,6 +1,7 @@
 """The port stands alone: ``repro_torch``, ``chip_smoke.py`` and the
-multi-rank child ``tests/_torch_dist_child.py`` import neither JAX nor
-anything of the JAX package ``repro``."""
+multi-rank children ``tests/_torch_dist_child.py`` and
+``tests/_torch_shard_child.py`` import neither JAX nor anything of the
+JAX package ``repro``."""
 import ast
 import os
 import subprocess
@@ -14,7 +15,8 @@ torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "tests" / "_torch_dist_child.py"]
+    REPO / "chip_smoke.py", REPO / "tests" / "_torch_dist_child.py",
+    REPO / "tests" / "_torch_shard_child.py"]
 
 
 def _imported_roots(path: Path):
@@ -45,7 +47,10 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.serving.engine, repro_torch.launch.serve, "
             "repro_torch.models.moe, repro_torch.optim, repro_torch.train, "
             "repro_torch.launch.train, repro_torch.models.rwkv6, "
-            "repro_torch.models.rglru\n"
+            "repro_torch.models.rglru, repro_torch.sharding.policy, "
+            "repro_torch.launch.mesh, repro_torch.launch.dryrun, "
+            "repro_torch.configs.shapes, repro_torch.analysis, "
+            "repro_torch.analysis.cost, repro_torch.analysis.model_flops\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(','.join(bad))")

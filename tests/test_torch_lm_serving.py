@@ -274,15 +274,10 @@ def test_engine_over_the_distributed_stream(setup, tmp_path):
     np.testing.assert_array_equal(dmap, smap)
 
 
-@pytest.mark.parametrize("bad", ["temperature", "policy"])
+@pytest.mark.parametrize("bad", ["temperature"])
 def test_what_the_engine_refuses(setup, bad):
-    """Sampling (temperature > 0) and a sharding policy are not ported."""
+    """Sampling (temperature > 0) is not ported."""
     teng = setup["teng"]
-    if bad == "policy":
-        with pytest.raises(NotImplementedError, match="ShardingPolicy"):
-            ServingEngine(teng.model, teng.params, ServeConfig(),
-                          policy=object())
-        return
     eng = ServingEngine(teng.model, teng.params,
                         ServeConfig(knn_lambda=0.0, temperature=0.7))
     with pytest.raises(NotImplementedError, match="greedy only"):

@@ -455,20 +455,6 @@ def test_bf16_weights_carry_their_bits():
                                   tree["embed"].astype(np.float32))
 
 
-def test_moe_shardmap_raises():
-    """MoE's shard_map dispatch needs a device mesh (Queue 1 item 7): a
-    config that asks for it does not build, and its block refuses."""
-    cfg = dataclasses.replace(configs.get_config("llama4_scout_17b_a16e",
-                                                 reduced=True),
-                              moe_impl="shardmap")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        build_model(cfg)
-    blk = tcommon.BlockDef(kind="attn", moe=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        ttfm.apply_block(blk, {}, cfg, torch.zeros((1, 1, cfg.d_model)),
-                         torch.arange(1), None)
-
-
 # ======================================================================
 # bf16 against f32, printed (not a test)
 # ======================================================================

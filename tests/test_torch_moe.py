@@ -205,13 +205,6 @@ def test_aux_load_balance_loss_matches_jax(case):
     assert abs(float(got) - want) <= 1e-6 * abs(want)
 
 
-def test_moe_shardmap_is_not_ported():
-    jc, tc = _cfgs("top1_sigmoid", "exact")
-    _, tp = _params(jc)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        tmoe.moe_apply_shardmap(tp, tc, torch.zeros((1, 2, tc.d_model)))
-
-
 # ======================================================================
 # reduced llama4 (MoE every layer, chunked local + global NoPE attention)
 # ======================================================================

@@ -496,12 +496,3 @@ def test_launch_train_cli(tmp_path, capsys):
     assert "final loss" in capsys.readouterr().out
     assert out["slow_steps"] == []
 
-
-def test_sharded_training_is_not_ported():
-    cfg = configs.get_config("smollm_135m", reduced=True)
-    data = SyntheticLM(cfg.vocab_size, 16, 2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        Trainer(build_model(cfg), data, TrainConfig(), policy=object(),
-                device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        make_train_step(build_model(cfg), object(), tadamw.AdamWConfig())
