@@ -21,13 +21,30 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    and every integer leaf equal, distances within 1e-5; and on the card
    a strict engine equal, bit for bit, to the same requests as
    ``PFOIndex`` calls;
-5. the hot main path at a realistic size: ``PFOIndex.insert / query /
+5. the four example programs (``examples``), started after the build
+   and run beside phases 2-4 (which time nothing), each started as a
+   user starts it, ``python3 examples/<name>_torch.py``, in three lanes side
+   by side: the quickstart (its own asserts), the streaming
+   recommendation (recall@10 of each epoch held to the same program
+   with ``--device cpu``, run beside it) and kNN-LM serving (the
+   datastore grows by one memory a request), then the train example on
+   the reduced config (300 steps: the loss falls); the train example at
+   published width, 60 steps with checkpoints into ``build/``,
+   then to 70, resuming from step 60 (every loss finite, near ln V;
+   the parameters moving).  Each child runs the program as
+   ``__main__`` under a runner that counts its launches from 0 and
+   keeps the inputs of its heaviest call of each kernel; the launches
+   join the kernel rows as ``examples``, and ``lsh_hash``,
+   ``gather_rank`` and ``pair_dist`` are held against their plain
+   versions and timed on those inputs;
+6. the hot main path at a realistic size: ``PFOIndex.insert / query /
    delete`` on data shaped like ann-benchmarks' glove-100-angular
    (clustered unit vectors, d = 100, made from ``--seed``), with the
-   kernel launch counts set to 0 just before and read just after; its
+   kernel launch counts set to 0 just before and read just after, the
+   inserts sealing the hot forests into the ring at least once; its
    recall@10 is measured against ``BruteForce`` (the ``pair_dist``
    kernel), whose ids are also held against the plain version's;
-6. the stream engine on that index (``stream``): the streaming
+7. the stream engine on that index (``stream``): the streaming
    benchmark's 50/25/12.5/12.5 query/insert/delete/update mix in windows
    of 256 requests, 8,192 measured after a warm prefix, the counts set
    to 0 just before and read just after, every answer held to a
@@ -35,19 +52,19 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    per-request ``PFOIndex`` calls, flush and request latencies, one flag
    readback per round, the syncs no one counted, a traced flush's idle
    share, and ``lsh_hash`` / ``gather_rank`` at the 256-row bucket;
-7. checkpoints (``checkpoint``): ``save_index_checkpoint`` of that index
+8. checkpoints (``checkpoint``): ``save_index_checkpoint`` of that index
    into a temp dir and ``load_index_checkpoint`` on the card, every leaf
    equal and the 1,024 hot queries answered bit-identically (save and
    load seconds, bytes, the first restored query's ms); the small cold
    trace config with file-backed segments checkpointed (segments
    hardlinked) and restored with the same answers;
-8. the distributed engine (``dist``) on a one-rank NCCL group: a
+9. the distributed engine (``dist``) on a one-rank NCCL group: a
    ``DistStreamEngine`` and a ``StreamEngine`` on the card with the same
    projections get the same trace (8,192 inserts, then 4,096 requests of
    the stream mix in windows of 256, one forced seal, one forced merge)
    and answer alike; requests/s of both, readbacks, implicit syncs and
    collectives a round; a distributed checkpoint round trip;
-9. the LM serving path (``lm``): reduced smollm_135m and qwen2_7b in
+10. the LM serving path (``lm``): reduced smollm_135m and qwen2_7b in
    f32 on the CPU and on the card (prefill and decode logits within
    1e-4, three rounds of the kNN-LM engine with equal tokens and equal
    datastore leaves); then smollm_135m at full width in bf16 (random
@@ -65,7 +82,7 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    query, ``gather_rank`` on that query, ``pair_dist`` on the recall
    oracle), each held against its plain version and timed, with its
    bound (the kernel rows' ``lm`` entries and ``lm_oracle``);
-10. training (``train``), which launches none of the six kernels:
+11. training (``train``), which launches none of the six kernels:
    (a) reduced smollm_135m and llama4_scout_17b_a16e in f32, the same
    init and ``SyntheticLM`` batches, five ``make_train_step`` steps on
    the CPU and on the card: losses and grad norms at every step and the
@@ -87,7 +104,7 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    every routing difference at a near tie of the router's bf16 logits;
    no pair dropped at decode, tokens per expert, and the pairs one 4 x
    256-token prefill drops by capacity;
-11. the remaining block kinds (``families``): (a) reduced
+12. the remaining block kinds (``families``): (a) reduced
    deepseek_v2_236b (MLA + MoE), rwkv6_7b, recurrentgemma_9b (RG-LRU
    with local attention) and whisper_medium (encoder + cross-attention)
    in f32, their zero-init leaves drawn (std 0.1), on the CPU and on the
@@ -105,7 +122,7 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    memory; its kNN head's ``lsh_hash`` and ``gather_rank`` at its
    d_model counted, held against their plain versions and timed (the
    kernel rows' ``families`` entries);
-12. the LM stack's sharding (``sharded``) on a one-rank NCCL DeviceMesh
+13. the LM stack's sharding (``sharded``) on a one-rank NCCL DeviceMesh
    ``(data, model)`` = (1, 1), where every rule of the policy resolves
    to a replicated placement (the same code as a larger mesh): (a)
    smollm_135m at published widths in f32 behind ``ServingEngine(policy=
@@ -128,18 +145,18 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    prefill with ``moe_impl="shardmap"``; (d) the dry-run's
    ``llama4_scout_17b_a16e decode_32k`` cell at full width on the fake
    16 x 16 world, in a subprocess on the host beside (a)-(c);
-13. the paper's comparators on the hot path's own items and queries
+14. the paper's comparators on the hot path's own items and queries
    (``baselines``): ``ZOrderIndex`` and ``MultiProbeFlat`` inserted and
    queried beside PFO's answer, each with recall@10 and Eq. 1's error
    ratio against ``BruteForce``; ``SerializedPFO`` against a dispatched
    ``PFOIndex`` on 500 vectors, its forest equal on the CPU and on the
    card; counts set to 0 just before each comparator and read just
    after;
-14. the cold path at glove-100 width: 800,000 inserts with churn into
+15. the cold path at glove-100 width: 800,000 inserts with churn into
    an index whose store holds a third of them, spilling to file-backed
    segments; queries of cold-only items and deletes of them, counts set
    to 0 just before and read just after;
-15. each kernel against its plain version on the card, at the shapes its
+16. each kernel against its plain version on the card, at the shapes its
    path gave it, with its time, the plain version's time, one PyTorch
    library call's time and the least time the card could take (the
    bound): the larger of the bytes the call must move over the memory
@@ -154,7 +171,7 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    step), ``hamming`` through its wrapper, range check included, and
    ``lsh_hash`` and ``gather_rank`` also at the stream's 256-row bucket
    (``stream_bucket``, with their launches by path);
-16. the kernels line, the card's name and power limit, then the last
+17. the kernels line, the card's name and power limit, then the last
     line: ``{"ok": true, "device": {...}}``.
 
 Everything worth keeping is printed as one JSON object per line.
@@ -164,13 +181,16 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import importlib.util
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -183,7 +203,7 @@ from repro_torch.checkpoint import (  # noqa: E402
     load_dist_checkpoint, load_index_checkpoint, save_dist_checkpoint,
     save_index_checkpoint)
 from repro_torch.checkpoint.ckpt import (  # noqa: E402
-    flatten_with_paths, read_manifest)
+    _read_leaf, _step_dir, flatten_with_paths, read_manifest)
 from repro_torch.core import DistConfig  # noqa: E402
 from repro_torch.core import distributed as dist_mod  # noqa: E402
 from repro_torch.core import PFOConfig, PFOIndex  # noqa: E402
@@ -230,7 +250,7 @@ RANK_TOL = 2e-5          # gather_rank, rank_dots vs plain (the reference)
 PAIR_TOL = 1e-4          # pair_dist vs plain (reference tolerance)
 TIE_TOL = 1e-5           # oracle ids may differ only across a near-tie
 GLOVE_ROWS = 1_183_514   # glove-100-angular's train rows ...
-ITEMS = 320_000          # ... cut for the hot path, to leave time for the cold
+ITEMS = 192_000          # ... cut for the hot path, to leave time for the cold
 QUERIES = 1024           # k = 10, half self-queries, half fresh vectors
 QUERY_REPS = 7           # timed repeats of the hot path's query call
 DELETES = 4096           # enough to fill the tombstone buffer and merge
@@ -820,7 +840,7 @@ def phase_stream_trace(seed: int):
 
 
 # ----------------------------------------------------------------------
-# phase 5: the hot main path at a realistic size
+# phase 6: the hot main path at a realistic size
 # ----------------------------------------------------------------------
 def exact_oracle(cfg, ids, vecs, q):
     """Exact top-11 of each query among (ids, vecs) through ``BruteForce``,
@@ -973,6 +993,11 @@ def phase_main(args):
           f"{probes[0]}")
     check(idx.stats()["overflow_events"] == 0, "arena overflow")
     check("merge" in idx.maintenance_log, "deletes did not drive a merge")
+    cursors = [[int(c) for c in index_mod.forest_headroom(f)] for f in (
+        idx.state.lsh_forest, idx.state.main_forest)]
+    check("seal" in idx.maintenance_log,
+          "the inserts never sealed the hot forests into the ring: worst "
+          f"(leaf, node) cursors LSH / main {cursors}")
 
     # recall@10 against the exact oracle over the items live at query
     # time (all of them: the deletes came after), held against the
@@ -1020,7 +1045,7 @@ def phase_main(args):
 
 
 # ----------------------------------------------------------------------
-# phase 6: the stream engine at glove-100 width, on the hot path's index
+# phase 7: the stream engine at glove-100 width, on the hot path's index
 # ----------------------------------------------------------------------
 STREAM_WARM = 1024          # requests before the measured leg
 STREAM_REQUESTS = 8192      # the measured leg (cut for time from 32,768
@@ -1187,7 +1212,7 @@ def hist(snap: dict, name: str) -> dict:
 
 
 def phase_stream(args, idx, hot: dict, rows: list):
-    """The stream engine over the hot path's 320,000-item index (reused,
+    """The stream engine over the hot path's ITEMS-item index (reused,
     so no second index is built): a STREAM_WARM warm prefix, then
     STREAM_REQUESTS requests of the streaming benchmark's mix in windows
     of STREAM_FLUSH, with the launch counts set to 0 just before and read
@@ -1388,7 +1413,7 @@ def phase_stream(args, idx, hot: dict, rows: list):
 
 
 # ----------------------------------------------------------------------
-# phase 7: checkpoints of the hot path's index and of a small cold one
+# phase 8: checkpoints of the hot path's index and of a small cold one
 # ----------------------------------------------------------------------
 def dir_bytes(path: str) -> int:
     return sum(os.path.getsize(os.path.join(d, f))
@@ -1492,7 +1517,7 @@ def phase_checkpoint(args, idx, hot: dict, rows: list) -> None:
 
 
 # ----------------------------------------------------------------------
-# phase 8: the distributed engine on a one-rank NCCL group
+# phase 9: the distributed engine on a one-rank NCCL group
 # ----------------------------------------------------------------------
 DIST_ITEMS = 8192           # inserts before the mixed leg (cut for time
 #                             from 65,536, 32,768 and 16,384)
@@ -1726,7 +1751,7 @@ def _dist_run(args, cfg, tmp, rows) -> dict:
 
 
 # ----------------------------------------------------------------------
-# phase 9: the LM serving path (ServingEngine with the kNN-LM head)
+# phase 10: the LM serving path (ServingEngine with the kNN-LM head)
 # ----------------------------------------------------------------------
 LM_ARCH = "smollm_135m"
 LM_PARITY_ARCHS = ("smollm_135m", "qwen2_7b")   # reduced, CPU == card
@@ -2176,7 +2201,7 @@ def phase_lm(args, card: str, rows: list) -> tuple:
 
 
 # ----------------------------------------------------------------------
-# phase 10: training (the dense decoder at full width, MoE at full width)
+# phase 11: training (the dense decoder at full width, MoE at full width)
 # ----------------------------------------------------------------------
 TRAIN_PARITY_ARCHS = ("smollm_135m", "llama4_scout_17b_a16e")  # reduced
 TRAIN_PARITY_STEPS = 5
@@ -2610,7 +2635,7 @@ def phase_train(args, card: str) -> None:
 
 
 # ----------------------------------------------------------------------
-# phase 11: the remaining block kinds (MLA, RWKV-6, RG-LRU, the encoder)
+# phase 12: the remaining block kinds (MLA, RWKV-6, RG-LRU, the encoder)
 # ----------------------------------------------------------------------
 FAMILY_ARCHS = ("deepseek_v2_236b", "rwkv6_7b", "recurrentgemma_9b",
                 "whisper_medium")
@@ -2984,7 +3009,7 @@ def phase_families(args, card: str, rows: list) -> None:
 
 
 # ----------------------------------------------------------------------
-# phase 12: the LM stack's sharding on a one-rank NCCL DeviceMesh
+# phase 13: the LM stack's sharding on a one-rank NCCL DeviceMesh
 # ----------------------------------------------------------------------
 SHARD_ARCH = "smollm_135m"
 SHARD_FILL = (4, 256)        # SyntheticLM sequences x tokens: 1,024 memories
@@ -3301,7 +3326,329 @@ def phase_sharded(args, card: str, rows: list) -> None:
 
 
 # ----------------------------------------------------------------------
-# phase 13: the paper's comparators on the hot path's items and queries
+# phase 5: the four example programs, run as a user runs them (beside 2-4)
+# ----------------------------------------------------------------------
+ROOT = Path(__file__).resolve().parent
+EXAMPLES_CKPT = "build/examples_ckpt"   # the train example's, removed after
+EXAMPLE_TRAIN_STEPS = (60, 70)   # the second run resumes from step 60
+EXAMPLE_TIMEOUT = 600            # seconds one example may take
+EXAMPLE_RECALL_TOL = 0.02        # card vs CPU recall@10 of an epoch
+EXAMPLE_LOSS_BAND = 0.25         # published width: |loss - ln V| at most
+EXAMPLE_SMOKE_FALL = 0.2         # --smoke: the loss falls at least this
+
+
+def example_module(name: str):
+    """``examples/<name>_torch.py`` imported (for its config and sizes;
+    nothing runs at import)."""
+    spec = importlib.util.spec_from_file_location(
+        f"{name}_torch", ROOT / "examples" / f"{name}_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# Runs an example as ``__main__`` (``sys.argv`` as the user gives it) and,
+# however it ends, writes the kernel launches it made (the process counts
+# from 0) and the inputs of its heaviest call of each tapped kernel.
+EXAMPLE_RUNNER = """
+import json, runpy, sys, torch
+from repro_torch.kernels import _build, ops
+script, launch_file, inputs_file, *argv = sys.argv[1:]
+WORK = {"lsh_hash": lambda x, *r: x.shape[0],
+        "gather_rank": lambda q, s, slots, valid, *r: int(valid.sum()),
+        "pair_dist_sq": lambda q, x: q.shape[0] * x.shape[0]}
+kept = {}
+
+def tap(name, real):
+    def wrapper(*args, **kw):
+        if args[0].is_cuda:
+            work = WORK[name](*args)
+            if name not in kept or work > kept[name][0]:
+                kept[name] = (work, [a.cpu() if torch.is_tensor(a) else a
+                                     for a in args])
+        return real(*args, **kw)
+    return wrapper
+
+for name in WORK:
+    setattr(ops, name, tap(name, getattr(ops, name)))
+sys.argv = [script, *argv]
+try:
+    runpy.run_path(script, run_name="__main__")
+finally:
+    with open(launch_file, "w") as f:
+        json.dump(_build.LAUNCHES, f)
+    torch.save({k: v[1] for k, v in kept.items()}, inputs_file)
+"""
+
+
+def run_example(name: str, *argv, env: dict | None = None) -> dict:
+    """``examples/<name>_torch.py ARGV`` run as ``__main__`` in a child
+    ``python3`` from the checkout's root with ``PYTHONPATH=src``, as its
+    docstring says a user runs it (through ``EXAMPLE_RUNNER``, which
+    only counts and records the kernels' calls); its wall seconds,
+    output, the kernel launches it made and the inputs (on the CPU) of
+    its heaviest call of ``lsh_hash``, ``gather_rank`` and
+    ``pair_dist_sq`` on the card.  A nonzero exit fails the run."""
+    with tempfile.TemporaryDirectory() as tmp:
+        log, inputs = (os.path.join(tmp, f) for f in ("launches.json",
+                                                      "inputs.pt"))
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), **(env or {}))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", EXAMPLE_RUNNER,
+             f"examples/{name}_torch.py", log, inputs, *argv], cwd=ROOT,
+            env=env, capture_output=True, text=True, timeout=EXAMPLE_TIMEOUT)
+        s = time.perf_counter() - t0
+        check(proc.returncode == 0,
+              f"examples/{name}_torch.py {' '.join(argv)} exited "
+              f"{proc.returncode}: {proc.stdout[-2000:]} "
+              f"{proc.stderr[-3000:]}")
+        launches = json.loads(Path(log).read_text())
+        seen = torch.load(inputs)
+    return dict(s=s, out=proc.stdout, launches=launches, inputs=seen)
+
+
+def parse_lines(pattern: str, out: str) -> list:
+    return [m.groups() for m in re.finditer(pattern, out, re.M)]
+
+
+def examples_quickstart(run: dict) -> dict:
+    ids = [json.loads(g[1]) for g in
+           parse_lines(r"^q(\d+): ids=(\[[^\]]*\]) d0=", run["out"])]
+    lines = run["out"].splitlines()
+    check(len(ids) == 5 and all(r[0] == i for i, r in enumerate(ids))
+          and "deleted ids 1,2 -> no longer returned." in lines
+          and lines[-1] == "done.",
+          f"quickstart: its asserts or lines: {run['out'][-2000:]}")
+    upd = parse_lines(r"^after update, query\(-v0\): (\[[^\]]*\])",
+                      run["out"])
+    return dict(s=run["s"], ids=ids, after_update=json.loads(upd[0][0]),
+                launches=run["launches"])
+
+
+def examples_epochs(out: str) -> list:
+    return [dict(epoch=int(e), store=int(n), req_s=float(r),
+                 recall=float(c), rounds=int(k), seals=int(z))
+            for e, n, r, c, k, z in parse_lines(
+                r"^epoch (\d+): store=\s*(\d+)\s+(\d+) req/s "
+                r"recall@10=([\d.]+) rounds=(\d+) syncs=\d+ seals=(\d+)",
+                out)]
+
+
+def examples_streaming(card_run: dict, cpu_run: dict, epochs: int) -> dict:
+    """The stream's recall@10 on the card, epoch by epoch, against the
+    same program on the CPU (the same projections: a CPU generator
+    seeded 0); they may part only where a hash or a near-tie distance
+    moves a query's answer."""
+    card, cpu = examples_epochs(card_run["out"]), \
+        examples_epochs(cpu_run["out"])
+    check(len(card) == epochs and len(cpu) == epochs,
+          f"streaming_recsys: {len(card)} / {len(cpu)} epochs printed")
+    gaps = [abs(a["recall"] - b["recall"]) for a, b in zip(card, cpu)]
+    check(max(gaps) <= EXAMPLE_RECALL_TOL and
+          all(e["recall"] > 0 for e in card),
+          f"streaming_recsys: recall@10 card {[e['recall'] for e in card]}"
+          f" vs CPU {[e['recall'] for e in cpu]}")
+    return dict(s=card_run["s"], epochs=card, cpu_recall=[
+        e["recall"] for e in cpu], cpu_req_s=[e["req_s"] for e in cpu],
+        cpu_s=cpu_run["s"], max_recall_gap=max(gaps),
+        launches=card_run["launches"])
+
+
+def examples_knnlm(run: dict, rounds: int, requests: int) -> dict:
+    got = [(int(r), json.loads(t), int(n)) for r, t, n in parse_lines(
+        r"^round (\d+): tokens\[0\]=(\[[^\]]*\]) datastore=(\d+)",
+        run["out"])]
+    sizes = [n for _, _, n in got]
+    check(sizes == [requests * (r + 1) for r in range(rounds)],
+          f"knnlm_serving: the datastore grew {sizes}, not by {requests} "
+          "a round")
+    return dict(s=run["s"], tokens0=[t for _, t, _ in got],
+                datastore=sizes, launches=run["launches"])
+
+
+def examples_train_run(run: dict) -> dict:
+    """One run of the train example: its closing line and logged steps."""
+    ends = parse_lines(r"^loss: ([\d.]+) -> ([\d.]+) over (\d+) steps",
+                       run["out"])
+    steps = parse_lines(r"^step\s+(\d+) loss ([\d.]+) gnorm (\S+) "
+                        r"\((\d+) ms\)", run["out"])
+    check(len(ends) == 1 and steps,
+          f"train_smollm: its lines: {run['out'][-2000:]}")
+    return dict(s=run["s"], first_loss=float(ends[0][0]),
+                last_loss=float(ends[0][1]), steps=int(ends[0][2]),
+                first_step=int(steps[0][0]),
+                logged=[(int(a), float(b)) for a, b, _, _ in steps],
+                gnorms=[float(g) for _, _, g, _ in steps],
+                logged_ms=[int(c) for *_, c in steps],
+                launches=run["launches"])
+
+
+def params_moved(ckpt_dir: str, a: int, b: int) -> dict:
+    """Whether each small parameter leaf (the norms' weights: at most
+    2^16 entries) differs between the checkpoints of steps ``a`` and
+    ``b`` (a train checkpoint's leaf ``0/...`` is a parameter)."""
+    (da, la), (db, lb) = ((_step_dir(ckpt_dir, s), {
+        e["path"]: e for e in read_manifest(ckpt_dir, s)["leaves"]})
+        for s in (a, b))
+    return {p: not np.array_equal(_read_leaf(da, e), _read_leaf(db, lb[p]))
+            for p, e in la.items()
+            if p.startswith("0/") and np.prod(e["shape"]) <= 1 << 16}
+
+
+def examples_train(first: dict, second: dict, smoke: dict,
+                   vocab: int) -> dict:
+    """The train example: at published width, 60 steps from 0 with
+    checkpoints at 50 and 60, then a run to 70 that resumes at 60, every
+    gradient norm finite and positive, every small parameter leaf moved
+    from step 50 to 60, every
+    loss finite and within EXAMPLE_LOSS_BAND of ln(vocab) (a uniform
+    guess: 30,720 tokens cannot teach the stream's bigram map over
+    49,152 ids, so the loss holds there); the loss falls over the
+    reduced config's 300 steps (``--smoke``) of the same program."""
+    a, b = EXAMPLE_TRAIN_STEPS
+    runs = [examples_train_run(r) for r in (first, second)]
+    check(runs[0]["steps"] == a and runs[0]["first_step"] == 0,
+          f"train_smollm: the first run did not train steps 0-{a - 1}")
+    check(runs[1]["first_step"] == a and runs[1]["steps"] == b - a,
+          f"train_smollm: the second run did not resume at step {a}")
+    losses = [x for r in runs for x in (r["first_loss"], r["last_loss"])] \
+        + [x for r in runs for _, x in r["logged"]]
+    uniform = float(np.log(vocab))
+    check(all(np.isfinite(losses)) and
+          max(abs(x - uniform) for x in losses) <= EXAMPLE_LOSS_BAND,
+          f"train_smollm: a loss left ln(V) = {uniform} +- "
+          f"{EXAMPLE_LOSS_BAND}: {losses}")
+    gnorms = [g for r in runs for g in r["gnorms"]]
+    check(all(np.isfinite(gnorms)) and min(gnorms) > 0,
+          f"train_smollm: a gradient norm not finite or 0: {gnorms}")
+    full = ROOT / EXAMPLES_CKPT / "full"
+    ckpts = sorted(os.listdir(full))
+    check(ckpts == [f"step_{s:08d}" for s in (50, a, b)],
+          f"train_smollm: checkpoints {ckpts}")
+    moved = params_moved(str(full), 50, a)
+    check(moved and all(moved.values()),
+          f"train_smollm: parameters unchanged from step 50 to {a}: {moved}")
+    small = examples_train_run(smoke)
+    check(small["first_step"] == 0 and small["last_loss"] < small[
+        "first_loss"] - EXAMPLE_SMOKE_FALL,
+          f"train_smollm --smoke: the loss did not fall: {small['logged']}")
+    return dict(runs=runs, ln_vocab=uniform, checkpoints=ckpts,
+                small_params_moved=moved,
+                checkpoint_bytes=dir_bytes(str(full / ckpts[-1])),
+                smoke=small)
+
+
+def examples_kernels(runs: dict) -> dict:
+    """Each example's kernels on the card at the inputs of its own
+    heaviest call of each (``run_example``'s taps: the most rows hashed,
+    the most valid candidates ranked, the largest oracle), held against
+    their plain versions and timed; ``{kernel: {example: entry}}``."""
+    out = {}
+    for ex, run in runs.items():
+        seen = {k: [a.to(DEVICE).contiguous() if torch.is_tensor(a) else a
+                    for a in v] for k, v in run["inputs"].items()}
+        if "lsh_hash" in seen:
+            x, a = (t.float() for t in seen["lsh_hash"][:2])
+            out.setdefault("lsh_hash", {})[ex] = lsh_hash_at(x, a)
+        if "gather_rank" in seen:
+            q, store, slots, valid, metric = seen["gather_rank"][:5]
+            out.setdefault("gather_rank", {})[ex] = gather_rank_at(
+                q.float(), store.float(), slots, valid.bool(), metric)
+        if "pair_dist_sq" in seen:
+            out.setdefault("pair_dist", {})[ex] = pair_dist_at(
+                tuple(t.float() for t in seen["pair_dist_sq"]))
+    return out
+
+
+def start_examples(pool: ThreadPoolExecutor) -> dict:
+    """Start the four example programs as a user starts them, each a
+    subprocess ``python3 examples/<name>_torch.py`` on the card with the
+    kernels built, in three lanes side by side on ``pool``: (1) the
+    quickstart, the stream and kNN-LM serving (3 rounds) at their
+    defaults, then training of the reduced config (``--smoke``, 300
+    steps); (2) training at published width for 60 steps into
+    ``build/``, then to 70, resuming from step 60; (3) the stream
+    once more with ``--device cpu``, which holds the card's recall.
+    They run beside the CPU-vs-card traces (phases 2-4, which time
+    nothing) on the host's idle cores; :func:`phase_examples` waits for
+    them before any measured leg.  Returns the lanes' futures."""
+    a, b = EXAMPLE_TRAIN_STEPS
+    ckpt, smoke = (ROOT / EXAMPLES_CKPT / n for n in ("full", "smoke"))
+    shutil.rmtree(ROOT / EXAMPLES_CKPT, ignore_errors=True)
+    lanes = {
+        "card": [("quickstart",), ("streaming_recsys",), ("knnlm_serving",),
+                 ("train_smollm", "--smoke", "--ckpt", str(smoke))],
+        "train": [("train_smollm", "--steps", str(a), "--ckpt", str(ckpt)),
+                  ("train_smollm", "--steps", str(b), "--ckpt", str(ckpt))],
+        # the CPU run keeps to two threads, off the card lanes' host cores
+        "cpu": [("streaming_recsys", "--device", "cpu")],
+    }
+    cpu_env = {"OMP_NUM_THREADS": "2"}
+
+    def lane(name):
+        t0 = time.perf_counter()
+        runs = [run_example(*c, env=cpu_env if name == "cpu" else None)
+                for c in lanes[name]]
+        return runs, time.perf_counter() - t0
+    return {k: pool.submit(lane, k) for k in lanes}
+
+
+def phase_examples(card: str, lanes: dict) -> dict:
+    """Wait for the example programs (:func:`start_examples`) and check
+    what they printed; the card runs of the three that launch kernels
+    (their launches, counted in each child from 0, and their kernels'
+    inputs) are returned for the kernel rows (:func:`examples_rows`)."""
+    t_phase = time.perf_counter()
+    sr, kn = (example_module(n) for n in ("streaming_recsys",
+                                          "knnlm_serving"))
+    done = {k: f.result() for k, f in lanes.items()}
+    runs = {k: v[0] for k, v in done.items()}
+    out = dict(
+        quickstart=examples_quickstart(runs["card"][0]),
+        streaming_recsys=examples_streaming(runs["card"][1],
+                                            runs["cpu"][0], sr.EPOCHS),
+        knnlm_serving=examples_knnlm(runs["card"][2], kn.ROUNDS,
+                                     kn.REQUESTS),
+        train_smollm=examples_train(
+            *runs["train"], runs["card"][3],
+            configs.get_config("smollm_135m").vocab_size))
+    total = {n: sum(r["launches"].get(n, 0) for r in runs["card"] +
+                    runs["train"]) for n in _build.LAUNCHES}
+    for name in ("lsh_hash", "gather_rank"):
+        for ex in ("quickstart", "streaming_recsys", "knnlm_serving"):
+            check(out[ex]["launches"].get(name, 0) > 0,
+                  f"{ex} launched no {name}")
+    check(out["streaming_recsys"]["launches"].get("pair_dist", 0)
+          == sr.EPOCHS, "streaming_recsys: an oracle ran without pair_dist")
+    trained = runs["train"] + runs["card"][3:]
+    check(not any(sum(r["launches"].values()) for r in trained),
+          "train_smollm launched an index kernel")
+    emit(phase="examples", card=card, **out, launches=total,
+         lanes_s={k: v[1] for k, v in done.items()},
+         wait_s=time.perf_counter() - t_phase)
+    return {ex: dict(launches=r["launches"], inputs=r["inputs"])
+            for ex, r in zip(("quickstart", "streaming_recsys",
+                              "knnlm_serving"), runs["card"])}
+
+
+def examples_rows(rows: list, runs: dict) -> dict:
+    """The examples' launches into the kernel rows (``examples``: the
+    sum, and each example's launches with its kernel held and timed on
+    its own inputs, :func:`examples_kernels`); returns pair_dist's."""
+    kernels = examples_kernels(runs)
+    for row in rows[:2]:
+        name = row["name"]
+        row.setdefault("launches_by_path", {})["examples"] = sum(
+            r["launches"][name] for r in runs.values())
+        row["examples"] = {ex: dict(at, launches=runs[ex]["launches"][name])
+                           for ex, at in kernels[name].items()}
+    return {ex: dict(at, launches=runs[ex]["launches"]["pair_dist"])
+            for ex, at in kernels["pair_dist"].items()}
+
+
+# ----------------------------------------------------------------------
+# phase 14: the paper's comparators on the hot path's items and queries
 # ----------------------------------------------------------------------
 def run_comparator(index, ids, vecs, q, batch: int):
     """Insert (ids, vecs) in batches and answer q once, with the launch
@@ -3432,8 +3779,13 @@ def phase_baselines(args, hot):
         feeds[name] = launches["rank_dots"]
         feeds[name + "_dots_in"] = dots
         if name == "multiprobe":
-            feeds["keys"] = (index._buckets(q)[1],
-                             index._buckets(vecs[:HAMMING_KEYS])[1])
+            # the stored items' keys, topped up to HAMMING_KEYS with
+            # fresh vectors of the same distribution
+            more = max(0, HAMMING_KEYS - n)
+            keyed = torch.cat([vecs[:HAMMING_KEYS], clustered(
+                more, cfg.dim, args.seed + 7, dev)]) if more else \
+                vecs[:HAMMING_KEYS]
+            feeds["keys"] = (index._buckets(q)[1], index._buckets(keyed)[1])
             out[name]["bucket_fill_max"] = int(index.bucket_fill.max())
         del index
     out["bruteforce"] = dict(queries_per_s=hot["oracle_queries_per_s"],
@@ -3447,7 +3799,7 @@ def phase_baselines(args, hot):
 
 
 # ----------------------------------------------------------------------
-# phase 14: the cold path at glove-100 width
+# phase 15: the cold path at glove-100 width
 # ----------------------------------------------------------------------
 COLD_TOMBSTONES = 1 << 17
 COLD_BUDGET = 256
@@ -3627,7 +3979,7 @@ def phase_cold_main(args):
 
 
 # ----------------------------------------------------------------------
-# phase 15: each kernel against its plain version, timed, with its bound
+# phase 16: each kernel against its plain version, timed, with its bound
 # ----------------------------------------------------------------------
 def hash_flips(x, a, rounding: bool = False) -> dict:
     """lsh_hash's bits on the card against its plain version and against
@@ -3805,13 +4157,15 @@ def pair_dist_at(xin) -> dict:
         library_ms=cuda_ms(lambda: torch.cdist(qn, xn).square(), iters=5))
 
 
-def pair_dist_row(hot: dict, cold: dict, lm: dict, launches: dict) -> dict:
+def pair_dist_row(hot: dict, cold: dict, lm: dict, examples: dict,
+                  launches: dict) -> dict:
     """pair_dist at its launches on the paths, from :func:`pair_dist_at`:
-    the hot oracle's 1024 queries against 320,000 items (the row's own
+    the hot oracle's 1024 queries against ITEMS items (the row's own
     numbers, measured before the cold path runs), the cold oracle's
-    against the cold path's live items, N % 4 != 0 (``cold_oracle``), and
-    the LM datastore's recall oracle at d = 576 (``lm_oracle``).
-    ``launches`` counts it by path."""
+    against the cold path's live items, N % 4 != 0 (``cold_oracle``), the
+    LM datastore's recall oracle at d = 576 (``lm_oracle``) and the
+    streaming example's last oracle (``examples_oracle``).  ``launches``
+    counts it by path."""
     return dict(
         name="pair_dist", route="cuda", design="3xtf32-mma",
         source="src/repro_torch/kernels/csrc/pair_dist.cu",
@@ -3821,7 +4175,8 @@ def pair_dist_row(hot: dict, cold: dict, lm: dict, launches: dict) -> dict:
         timed="through pair_dist_cuda, norms included; kernel_ms: "
               "torch.profiler's kernel time",
         library_call="torch.cdist(q, x).square()",
-        cold_oracle=cold, lm_oracle=dict(lm, launches=launches["lm"]))
+        cold_oracle=cold, lm_oracle=dict(lm, launches=launches["lm"]),
+        examples_oracle=examples)
 
 
 def rank_dots_at(xin) -> dict:
@@ -3865,7 +4220,8 @@ def rank_dots_row(zorder: dict, multiprobe: dict, launches: dict) -> dict:
 
 def hamming_row(keys) -> dict:
     """hamming on MultiProbeFlat's own keys: its 1024 query keys against
-    the first HAMMING_KEYS stored items' keys (W = L words).  Nothing on
+    HAMMING_KEYS keys of stored items (the first of them, topped up with
+    fresh vectors when the hot path holds fewer; W = L words).  Nothing on
     any path calls it (the JAX package only names it), so its launches
     are this row's own.  Timed through ``hamming_cuda`` on the int64
     keys, its range check included; ``kernel_ms`` is the kernel alone."""
@@ -3989,9 +4345,15 @@ def main() -> int:
     emit(phase="build", torch=torch.__version__, cuda=torch.version.cuda,
          card=card, nvcc_s=build_s, build_s=time.perf_counter() - t0,
          ptxas=_build.ptxas_report())
-    phase_trace(args.seed)
-    phase_cold_trace(args.seed)
-    phase_stream_trace(args.seed)
+    try:
+        with ThreadPoolExecutor(3) as pool:
+            lanes = start_examples(pool)
+            phase_trace(args.seed)
+            phase_cold_trace(args.seed)
+            phase_stream_trace(args.seed)
+            ex_runs = phase_examples(card, lanes)
+    finally:
+        shutil.rmtree(ROOT / EXAMPLES_CKPT, ignore_errors=True)
     idx, ranked, launches, hot = phase_main(args)
     rows = phase_kernels(idx, ranked, launches)
     phase_stream(args, idx, hot, rows)
@@ -4008,10 +4370,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_sharded(args, card, rows)
     torch.cuda.empty_cache()
+    ex_pair = examples_rows(rows, ex_runs)
     hot_pair = pair_dist_at(hot["oracle_in"])
     feeds = phase_baselines(args, hot)
     pair_launches = dict(hot_oracle=hot["oracle_launches"],
-                         lm=lm_launches["pair_dist"])
+                         lm=lm_launches["pair_dist"],
+                         examples=sum(e["launches"]
+                                      for e in ex_pair.values()))
     rows.append(rank_dots_row(
         rank_dots_at(feeds["zorder_dots_in"]),
         rank_dots_at(feeds["multiprobe_dots_in"]),
@@ -4025,7 +4390,7 @@ def main() -> int:
     del ranked
     torch.cuda.empty_cache()
     rows.insert(3, pair_dist_row(hot_pair, pair_dist_at(cold_in), lm_pair,
-                                 pair_launches))
+                                 ex_pair, pair_launches))
     check(not torch.backends.cuda.matmul.allow_tf32,
           "float32 products ran in TF32 during the run")
     emit(kernels=rows)

@@ -11,6 +11,7 @@ def default_device(device) -> torch.device:
         return torch.device(device)
     if not torch.cuda.is_available():
         raise RuntimeError("repro_torch runs on CUDA; no CUDA device is "
-                           "available (pass device='cpu' to run the plain "
-                           "versions of the kernels on the CPU)")
+                           "available (pass device='cpu', or --device cpu "
+                           "on a command line, to run the plain versions "
+                           "of the kernels on the CPU)")
     return torch.device("cuda")

@@ -1,7 +1,8 @@
-"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and the
-multi-rank children ``tests/_torch_dist_child.py`` and
-``tests/_torch_shard_child.py`` import neither JAX nor anything of the
-JAX package ``repro``."""
+"""The port stands alone: ``repro_torch``, ``chip_smoke.py``, the
+port's example programs ``examples/*_torch.py``, its scripts
+``scripts/{insert_ab,lm_datastore,lookup_ab}.py`` and the multi-rank
+children ``tests/_torch_dist_child.py`` and ``tests/_torch_shard_child.py``
+import neither JAX nor anything of the JAX package ``repro``."""
 import ast
 import os
 import subprocess
@@ -16,7 +17,11 @@ torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "tests" / "_torch_dist_child.py",
-    REPO / "tests" / "_torch_shard_child.py"]
+    REPO / "tests" / "_torch_shard_child.py"] + [
+    REPO / "examples" / f"{name}_torch.py" for name in (
+        "quickstart", "streaming_recsys", "knnlm_serving", "train_smollm")] + [
+    REPO / "scripts" / f"{name}.py" for name in (
+        "insert_ab", "lm_datastore", "lookup_ab")]
 
 
 def _imported_roots(path: Path):

@@ -1,10 +1,15 @@
 """``chip_smoke.py``'s own checks, on the CPU: its ``lsh_hash`` hold at
 large d (``hash_flips`` with ``rounding``) passes fp32-accurate products
-and fails one whose operands are rounded to bf16 or to 1xTF32.
+and fails one whose operands are rounded to bf16 or to 1xTF32; and the
+runner it starts each example program with passes the program its
+command line and writes the launch counts however the program ends.
 
 ``ops.lsh_hash`` is swapped for each product; the plain version and the
 float64 projection stay as the script uses them.
 """
+import json
+import os
+import subprocess
 import sys
 from pathlib import Path
 
@@ -61,3 +66,27 @@ def test_lsh_hash_band_tells_fp32_from_rounded_operands(monkeypatch, d, norm,
     monkeypatch.setattr(chip_smoke.ops, "lsh_hash", PRODUCTS[product])
     flips = chip_smoke.hash_flips(x, a, rounding=True)
     assert _held(flips) == (product in ("fp32_chunked", "3xtf32")), flips
+
+
+@pytest.mark.parametrize("code", [0, 3])
+def test_example_runner_passes_argv_and_writes_launches(tmp_path, code):
+    script = tmp_path / "prog.py"
+    script.write_text(
+        "import sys, torch\n"
+        "from repro_torch.kernels import ops\n"
+        "assert __name__ == '__main__'\n"
+        "print(sys.argv)\n"
+        "ops.lsh_hash(torch.ones(4, 8), torch.ones(8, 32))\n"
+        f"sys.exit({code})\n")
+    log, inputs = tmp_path / "launches.json", tmp_path / "inputs.pt"
+    env = dict(os.environ, PYTHONPATH=str(chip_smoke.ROOT / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-c", chip_smoke.EXAMPLE_RUNNER, str(script),
+         str(log), str(inputs), "--steps", "7"], env=env,
+        capture_output=True, text=True, timeout=120)
+    assert proc.returncode == code, proc.stderr[-2000:]
+    assert proc.stdout.strip() == repr([str(script), "--steps", "7"])
+    launches = json.loads(log.read_text())
+    assert set(launches) >= {"lsh_hash", "gather_rank", "pair_dist"}
+    assert not any(launches.values())       # the CPU runs the plain versions
+    assert torch.load(inputs) == {}         # ... and taps only the card's
